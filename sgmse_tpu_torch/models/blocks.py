@@ -1,0 +1,317 @@
+"""NN layer library for the NCSN++ backbone. Counterpart of the flagship's
+layers in ``sgmse_tpu/models/blocks.py``.
+
+Tensors are NCHW-indexed and lie in ``torch.channels_last`` memory, which is
+physically the JAX package's NHWC. Submodules carry the names of the Flax
+parameter tree (``Conv_0``, ``GroupNorm_1``, ``NIN_3``, ...), so that
+``convert.params_from_jax`` is a mechanical walk.
+
+Precision follows the JAX package: parameters are float32, ``dtype`` (None for
+float32 or ``torch.bfloat16``) is the compute dtype each layer casts its input
+and parameters to; GroupNorm statistics and the attention softmax stay float32.
+
+Initializers follow the DDPM convention: variance scaling (fan_avg, uniform)
+with scale 1e-10 when init_scale == 0. ``init_parameters(generator)`` on each
+leaf module draws its parameters from an explicit generator.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import group_norm as gn
+from ..ops import upfirdn2d as ufd
+
+CL = torch.channels_last
+
+
+def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Activation registry."""
+    if name == "elu":
+        return F.elu
+    elif name == "relu":
+        return F.relu
+    elif name == "lrelu":
+        return lambda x: F.leaky_relu(x, negative_slope=0.2)
+    elif name == "swish":
+        return F.silu
+    raise NotImplementedError(f"activation function {name} does not exist!")
+
+
+def _uniform_(p: torch.Tensor, limit: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * limit)
+
+
+def ddpm_init_(p: torch.Tensor, scale: float, fan_in: int, fan_out: int,
+               generator: torch.Generator) -> None:
+    """DDPM default init: fan_avg uniform variance scaling; scale 0 means 1e-10."""
+    scale = 1e-10 if scale == 0 else scale
+    _uniform_(p, math.sqrt(3.0 * scale / ((fan_in + fan_out) / 2.0)), generator)
+
+
+def _cast(t: Optional[torch.Tensor], dtype):
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Module):
+    """Flax ``nn.Conv`` counterpart: OIHW float32 weight, computes in ``dtype``.
+
+    ``init`` is "ddpm" (DDPM rule with ``init_scale``, zero bias) or "torch"
+    (torch's default: U(+-1/sqrt(fan_in)) for weight and bias).
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, bias: bool = True, dtype=None,
+                 init: str = "ddpm", init_scale: float = 1.0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.dtype, self.init, self.init_scale = dtype, init, init_scale
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        out_ch, in_ch, kh, kw = self.weight.shape
+        if self.init == "torch":
+            bound = 1.0 / math.sqrt(in_ch * kh * kw)
+            _uniform_(self.weight, bound, generator)
+            if self.bias is not None:
+                _uniform_(self.bias, bound, generator)
+            return
+        ddpm_init_(self.weight, self.init_scale, in_ch * kh * kw, out_ch * kh * kw, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.dtype or torch.float32
+        return F.conv2d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt), self.stride,
+                        self.padding, self.dilation)
+
+
+class Dense(nn.Module):
+    """Flax ``nn.Dense`` counterpart with DDPM init: (out, in) float32 weight."""
+
+    def __init__(self, in_features: int, out_features: int, init_scale: float = 1.0, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.init_scale, self.dtype = init_scale, dtype
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        out_f, in_f = self.weight.shape
+        ddpm_init_(self.weight, self.init_scale, in_f, out_f, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.dtype or torch.float32
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv3x3(nn.Module):
+    """3x3 conv with DDPM init."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1, bias: bool = True,
+                 dilation: int = 1, init_scale: float = 1.0, padding: int = 1, dtype=None):
+        super().__init__()
+        self.Conv_0 = Conv2d(in_ch, out_ch, 3, stride, padding, dilation, bias, dtype,
+                             init_scale=init_scale)
+
+    def forward(self, x):
+        return self.Conv_0(x)
+
+
+class Conv1x1(nn.Module):
+    """1x1 conv with DDPM init."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1, bias: bool = True,
+                 init_scale: float = 1.0, dtype=None):
+        super().__init__()
+        self.Conv_0 = Conv2d(in_ch, out_ch, 1, stride, 0, 1, bias, dtype, init_scale=init_scale)
+
+    def forward(self, x):
+        return self.Conv_0(x)
+
+
+class NIN(nn.Module):
+    """Network-in-network 1x1 projection via channel contraction: W is (in, out)."""
+
+    def __init__(self, in_dim: int, num_units: int, init_scale: float = 0.1, dtype=None):
+        super().__init__()
+        self.W = nn.Parameter(torch.zeros(in_dim, num_units))
+        self.b = nn.Parameter(torch.zeros(num_units))
+        self.init_scale, self.dtype = init_scale, dtype
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        in_dim, units = self.W.shape
+        ddpm_init_(self.W, self.init_scale, in_dim, units, generator)
+        nn.init.zeros_(self.b)
+
+    def forward(self, x):
+        dt = self.dtype or torch.float32
+        # channels_last (B, C, H, W) is a contiguous (B, H, W, C) after the permute.
+        h = torch.matmul(x.to(dt).permute(0, 2, 3, 1), self.W.to(dt)) + self.b.to(dt)
+        return h.permute(0, 3, 1, 2)
+
+
+class DDPMDense(nn.Module):
+    """Dense layer with DDPM init and zero bias (used for temb projections)."""
+
+    def __init__(self, in_features: int, features: int, init_scale: float = 1.0, dtype=None):
+        super().__init__()
+        self.Dense_0 = Dense(in_features, features, init_scale, dtype)
+
+    def forward(self, x):
+        return self.Dense_0(x)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm(min(ch//4, 32), eps=1e-6), optionally followed by SiLU in the same
+    kernel. Output in the compute ``dtype`` (float32 when None)."""
+
+    def __init__(self, ch: int, silu: bool = True, dtype=None, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.num_groups = gn.num_groups_for(ch)
+        self.silu, self.dtype, self.eps = silu, dtype, eps
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        x = x.to(self.dtype or torch.float32).contiguous(memory_format=CL)
+        return gn.group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps, self.silu)
+
+
+class GaussianFourierProjection(nn.Module):
+    """Gaussian Fourier features of the (log-)time. W is fixed: it never trains."""
+
+    def __init__(self, embedding_size: int = 256, scale: float = 16.0):
+        super().__init__()
+        self.W = nn.Parameter(torch.zeros(embedding_size), requires_grad=False)
+        self.scale = scale
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.W.copy_(torch.randn(self.W.shape, generator=generator) * self.scale)
+
+    def forward(self, x):
+        x_proj = x.float()[:, None] * self.W[None, :] * 2.0 * math.pi
+        return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
+def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
+                           max_positions: int = 10000) -> torch.Tensor:
+    """Sinusoidal positional embedding."""
+    half_dim = embedding_dim // 2
+    emb = math.log(max_positions) / (half_dim - 1)
+    emb = torch.exp(torch.arange(half_dim, dtype=torch.float32, device=timesteps.device) * -emb)
+    emb = timesteps.float()[:, None] * emb[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class Combine(nn.Module):
+    """Combine a pyramid skip with the trunk: 1x1 conv then sum/concat."""
+
+    def __init__(self, in_ch: int, dim2: int, method: str = "cat", dtype=None):
+        super().__init__()
+        if method not in ("cat", "sum"):
+            raise ValueError(f"Method {method} not recognized.")
+        self.Conv_0 = Conv1x1(in_ch, dim2, dtype=dtype)
+        self.method = method
+
+    def forward(self, x, y):
+        h = self.Conv_0(x)
+        if self.method == "cat":
+            return torch.cat([h, y], dim=1)
+        return h + y
+
+
+class AttnBlockpp(nn.Module):
+    """Single-head self-attention over the H*W tokens, scale C^-0.5, softmax in
+    float32. The QK^T and PV products are plain ``torch.matmul``."""
+
+    def __init__(self, channels: int, skip_rescale: bool = False, init_scale: float = 0.0,
+                 dtype=None):
+        super().__init__()
+        self.GroupNorm_0 = GroupNorm(channels, silu=False, dtype=dtype)
+        self.NIN_0 = NIN(channels, channels, dtype=dtype)
+        self.NIN_1 = NIN(channels, channels, dtype=dtype)
+        self.NIN_2 = NIN(channels, channels, dtype=dtype)
+        self.NIN_3 = NIN(channels, channels, init_scale=init_scale, dtype=dtype)
+        self.skip_rescale = skip_rescale
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        hn = self.GroupNorm_0(x)
+
+        def tokens(t):  # (B, C, H, W) channels_last -> (B, H*W, C)
+            return t.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+        q, k, v = tokens(self.NIN_0(hn)), tokens(self.NIN_1(hn)), tokens(self.NIN_2(hn))
+        logits = torch.matmul(q, k.transpose(1, 2)) * (c ** -0.5)
+        weights = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+        out = torch.matmul(weights, v).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        out = self.NIN_3(out)
+        if not self.skip_rescale:
+            return x + out
+        return (x + out) / math.sqrt(2.0)
+
+
+class ResnetBlockBigGANpp(nn.Module):
+    """BigGAN-style residual block with optional FIR up/down.
+
+    The block's activation is swish, fused into the GroupNorm kernel.
+    Inference only: dropout is not applied.
+    """
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, up: bool = False,
+                 down: bool = False, fir: bool = False,
+                 fir_kernel: Sequence[int] = (1, 3, 3, 1), skip_rescale: bool = True,
+                 init_scale: float = 0.0, temb_dim: Optional[int] = None, dtype=None):
+        super().__init__()
+        out_ch = out_ch if out_ch else in_ch
+        self.up, self.down, self.fir = up, down, fir
+        self.fir_kernel = tuple(fir_kernel)
+        self.skip_rescale = skip_rescale
+        self.GroupNorm_0 = GroupNorm(in_ch, silu=True, dtype=dtype)
+        self.Conv_0 = Conv3x3(in_ch, out_ch, dtype=dtype)
+        if temb_dim is not None:
+            self.Dense_0 = DDPMDense(temb_dim, out_ch, dtype=dtype)
+        self.GroupNorm_1 = GroupNorm(out_ch, silu=True, dtype=dtype)
+        self.Conv_1 = Conv3x3(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        if in_ch != out_ch or up or down:
+            self.Conv_2 = Conv1x1(in_ch, out_ch, dtype=dtype)
+
+    def _resample(self, t):
+        if self.up:
+            return (ufd.upsample_2d(t, self.fir_kernel, factor=2) if self.fir
+                    else ufd.naive_upsample_2d(t, factor=2))
+        if self.down:
+            return (ufd.downsample_2d(t, self.fir_kernel, factor=2) if self.fir
+                    else ufd.naive_downsample_2d(t, factor=2))
+        return t
+
+    def forward(self, x, temb=None):
+        h = self.GroupNorm_0(x)
+        if self.up or self.down:
+            h = self._resample(h)
+            x = self._resample(x.contiguous(memory_format=CL))
+        h = self.Conv_0(h)
+        if temb is not None:
+            h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
+        h = self.GroupNorm_1(h)
+        h = self.Conv_1(h)
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        if not self.skip_rescale:
+            return x + h
+        return (x + h) / math.sqrt(2.0)

@@ -1,0 +1,267 @@
+"""NCSN++ score network (the flagship ``ncsnpp`` backbone). Counterpart of
+``sgmse_tpu/models/ncsnpp.py:46-297``.
+
+The complex inputs ``x_t``/``y`` of shape (B, 1, F, T) are packed into a real
+(B, 4, F, T) tensor [x.re, x.im, y.re, y.im] in channels_last memory; F plays
+the image-height role, so attention triggers on the runtime frequency height
+``h.shape[2] in attn_resolutions``. Which levels hold attention parameters is
+fixed at construction from ``image_size`` (the frequency height the model is
+built for), as the JAX package's parameter tree is fixed by the input it was
+initialised with; a forward whose frequency height triggers attention at a
+level without parameters raises.
+
+Ported branches: BigGAN res-blocks with FIR resampling, ``output_skip`` and
+``input_skip`` pyramids combined by ``sum``, swish, Fourier or positional time
+embedding. The others (``ddpm`` blocks, ``residual`` pyramids, ``cat``
+combine, non-FIR resampling, other activations) raise NotImplementedError.
+Inference only: dropout and rematerialisation are training options and are
+accepted and ignored.
+
+Call contract: ``forward(x_t, y, t) -> complex64 (B, 1, F, T)``; the legacy
+``score = -dnn(...)`` sign lives in the ScoreModel.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import upfirdn2d as ufd
+from .blocks import (CL, AttnBlockpp, Combine, Conv2d, Conv3x3, DDPMDense,
+                     GaussianFourierProjection, GroupNorm, ResnetBlockBigGANpp,
+                     get_timestep_embedding)
+from .registry import BackboneRegistry
+
+
+def compute_dtype_for(precision: str):
+    if precision in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if precision in ("float32", "fp32", "f32"):
+        return None
+    raise ValueError(f"Unknown precision: {precision}")
+
+
+class NCSNppBase(nn.Module):
+    """NCSN++ U-Net; keyword arguments and defaults as the JAX ``NCSNppBase``."""
+
+    def __init__(
+        self,
+        scale_by_sigma: bool = True,
+        nonlinearity: str = "swish",
+        nf: int = 128,
+        ch_mult: Sequence[int] = (1, 1, 2, 2, 2, 2, 2),
+        num_res_blocks: int = 2,
+        attn_resolutions: Sequence[int] = (16,),
+        resamp_with_conv: bool = True,
+        conditional: bool = True,
+        fir: bool = True,
+        fir_kernel: Sequence[int] = (1, 3, 3, 1),
+        skip_rescale: bool = True,
+        resblock_type: str = "biggan",
+        progressive: str = "output_skip",
+        progressive_input: str = "input_skip",
+        progressive_combine: str = "sum",
+        init_scale: float = 0.0,
+        fourier_scale: float = 16.0,
+        image_size: int = 256,
+        embedding_type: str = "fourier",
+        dropout: float = 0.0,
+        centered: bool = True,
+        output_layer_before_sigma: bool = False,
+        precision: str = "float32",
+        remat: bool = False,
+    ):
+        super().__init__()
+        unported = {
+            "nonlinearity": (nonlinearity, "swish"),
+            "resblock_type": (resblock_type, "biggan"),
+            "progressive": (progressive, "output_skip"),
+            "progressive_input": (progressive_input, "input_skip"),
+            "progressive_combine": (progressive_combine.lower(), "sum"),
+            "fir": (fir, True),
+        }
+        for name, (got, ported) in unported.items():
+            if got != ported:
+                raise NotImplementedError(f"NCSNpp {name}={got!r} is not ported yet "
+                                          f"(ported: {ported!r})")
+        if embedding_type not in ("fourier", "positional"):
+            raise ValueError(f"embedding_type {embedding_type} unrecognized.")
+        self.nf = nf
+        self.ch_mult = tuple(ch_mult)
+        self.num_res_blocks = num_res_blocks
+        self.attn_resolutions = tuple(attn_resolutions)
+        self.fir_kernel = tuple(fir_kernel)
+        self.conditional = conditional
+        self.scale_by_sigma = scale_by_sigma
+        self.embedding_type = embedding_type
+        self.centered = centered
+        self.output_layer_before_sigma = output_layer_before_sigma
+        self.image_size = image_size
+        self.precision = precision
+        dt = self.compute_dtype = compute_dtype_for(precision)
+        num_channels = 4
+        temb_dim = nf * 4 if conditional else None
+
+        def resblock(name, in_ch, out_ch=None, up=False, down=False):
+            self.add_module(name, ResnetBlockBigGANpp(
+                in_ch, out_ch, up=up, down=down, fir=fir, fir_kernel=self.fir_kernel,
+                skip_rescale=skip_rescale, init_scale=init_scale, temb_dim=temb_dim, dtype=dt))
+
+        def attn(name, ch):
+            self.add_module(name, AttnBlockpp(ch, skip_rescale=skip_rescale,
+                                              init_scale=init_scale, dtype=dt))
+
+        if embedding_type == "fourier":
+            self.fourier = GaussianFourierProjection(embedding_size=nf, scale=fourier_scale)
+        if conditional:
+            emb_dim = 2 * nf if embedding_type == "fourier" else nf
+            self.temb_dense0 = DDPMDense(emb_dim, nf * 4, dtype=dt)
+            self.temb_dense1 = DDPMDense(nf * 4, nf * 4, dtype=dt)
+
+        # Channel bookkeeping mirrors the JAX forward pass.
+        self.conv_in = Conv3x3(num_channels, nf, dtype=dt)
+        hs_c = [nf]
+        in_ch = nf
+        num_resolutions = len(self.ch_mult)
+        for i_level in range(num_resolutions):
+            res = image_size // 2**i_level
+            for i_block in range(num_res_blocks):
+                out_ch = nf * self.ch_mult[i_level]
+                resblock(f"down_{i_level}_block{i_block}", in_ch, out_ch)
+                in_ch = out_ch
+                if res in self.attn_resolutions:
+                    attn(f"down_{i_level}_attn{i_block}", in_ch)
+                hs_c.append(in_ch)
+            if i_level != num_resolutions - 1:
+                resblock(f"down_{i_level}_downres", in_ch, down=True)
+                self.add_module(f"down_{i_level}_combine",
+                                Combine(num_channels, in_ch, method="sum", dtype=dt))
+                hs_c.append(in_ch)
+
+        resblock("mid_block0", in_ch)
+        attn("mid_attn", in_ch)
+        resblock("mid_block1", in_ch)
+
+        h_c = in_ch
+        for i_level in reversed(range(num_resolutions)):
+            res = image_size // 2**i_level
+            for i_block in range(num_res_blocks + 1):
+                out_ch = nf * self.ch_mult[i_level]
+                resblock(f"up_{i_level}_block{i_block}", h_c + hs_c.pop(), out_ch)
+                h_c = in_ch = out_ch
+            if res in self.attn_resolutions:
+                attn(f"up_{i_level}_attn", in_ch)
+            self.add_module(f"up_{i_level}_pyramid_norm", GroupNorm(in_ch, silu=True, dtype=dt))
+            self.add_module(f"up_{i_level}_pyramid_conv",
+                            Conv3x3(in_ch, num_channels, init_scale=init_scale, dtype=dt))
+            if i_level != 0:
+                resblock(f"up_{i_level}_upres", in_ch, up=True)
+        assert not hs_c
+
+        # 1x1 conv 4 -> 2 with torch's default init.
+        self.output_layer = Conv2d(num_channels, 2, 1, dtype=dt, init="torch")
+
+    def _attn(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        block = self._modules.get(name)
+        if block is None:
+            raise RuntimeError(f"frequency height {h.shape[2]} triggers attention at {name}, "
+                               f"but the model was built for image_size {self.image_size}")
+        return block(h)
+
+    def forward(self, x_t: torch.Tensor, y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        m = self._modules
+        dt = self.compute_dtype
+        num_resolutions = len(self.ch_mult)
+
+        # Complex (B, 1, F, T) pair -> real (B, 4, F, T), channels_last.
+        x = torch.stack([x_t[:, 0].real, x_t[:, 0].imag, y[:, 0].real, y[:, 0].imag], dim=-1)
+        x = x.to(dt or torch.float32).permute(0, 3, 1, 2)
+
+        # --- time embedding -----------------------------------------------------------
+        used_sigmas = t
+        if self.embedding_type == "fourier":
+            temb = self.fourier(torch.log(t))
+        else:
+            temb = get_timestep_embedding(t, self.nf)
+        if self.conditional:
+            temb = self.temb_dense0(temb)
+            temb = self.temb_dense1(F.silu(temb))
+        else:
+            temb = None
+
+        if not self.centered:
+            x = 2.0 * x - 1.0
+
+        # --- down path ----------------------------------------------------------------
+        input_pyramid = x.contiguous(memory_format=CL)
+        hs = [self.conv_in(x)]
+        for i_level in range(num_resolutions):
+            for i_block in range(self.num_res_blocks):
+                h = m[f"down_{i_level}_block{i_block}"](hs[-1], temb)
+                if h.shape[2] in self.attn_resolutions:
+                    h = self._attn(f"down_{i_level}_attn{i_block}", h)
+                hs.append(h)
+            if i_level != num_resolutions - 1:
+                h = m[f"down_{i_level}_downres"](hs[-1], temb)
+                input_pyramid = ufd.downsample_2d(input_pyramid, self.fir_kernel, factor=2)
+                h = m[f"down_{i_level}_combine"](input_pyramid, h)
+                hs.append(h)
+
+        # --- middle -------------------------------------------------------------------
+        h = m["mid_block0"](hs[-1], temb)
+        h = m["mid_attn"](h)
+        h = m["mid_block1"](h, temb)
+
+        # --- up path ------------------------------------------------------------------
+        pyramid = None
+        for i_level in reversed(range(num_resolutions)):
+            for i_block in range(self.num_res_blocks + 1):
+                h = m[f"up_{i_level}_block{i_block}"](torch.cat([h, hs.pop()], dim=1), temb)
+            if h.shape[2] in self.attn_resolutions:
+                h = self._attn(f"up_{i_level}_attn", h)
+            pyramid_h = m[f"up_{i_level}_pyramid_conv"](m[f"up_{i_level}_pyramid_norm"](h))
+            if i_level == num_resolutions - 1:
+                pyramid = pyramid_h
+            else:
+                pyramid = ufd.upsample_2d(pyramid.contiguous(memory_format=CL),
+                                          self.fir_kernel, factor=2)
+                pyramid = pyramid + pyramid_h
+            if i_level != 0:
+                h = m[f"up_{i_level}_upres"](h, temb)
+        assert not hs
+
+        # --- output scaling + complex packing -----------------------------------------
+        h = pyramid.float()
+        if self.output_layer_before_sigma:
+            h = self.output_layer(h)
+            if self.scale_by_sigma:
+                h = h / used_sigmas[:, None, None, None]
+        else:
+            if self.scale_by_sigma:
+                h = h / used_sigmas[:, None, None, None]
+            h = self.output_layer(h)
+        h = h.float()
+        return torch.complex(h[:, 0], h[:, 1])[:, None]
+
+
+@BackboneRegistry.register("ncsnpp")
+class NCSNpp(NCSNppBase):
+    """SGMSE+ flagship backbone."""
+
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--nf", type=int, default=128, help="Base channel count.")
+        parser.add_argument("--ch_mult", type=int, nargs="+", default=[1, 1, 2, 2, 2, 2, 2])
+        parser.add_argument("--num_res_blocks", type=int, default=2)
+        parser.add_argument("--attn_resolutions", type=int, nargs="+", default=[16])
+        parser.add_argument("--no-centered", dest="centered", action="store_false",
+                            help="The data is not centered [-1, 1]")
+        parser.add_argument("--centered", dest="centered", action="store_true",
+                            help="The data is centered [-1, 1]")
+        parser.set_defaults(centered=True)
+        parser.add_argument("--precision", type=str, default="float32",
+                            choices=("float32", "bfloat16"),
+                            help="Compute dtype (params stay float32).")
+        return parser

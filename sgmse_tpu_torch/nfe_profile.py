@@ -1,0 +1,133 @@
+"""Where the time of one score-network evaluation goes on the card.
+
+    python -m sgmse_tpu_torch.nfe_profile [--out DIR]
+
+Builds the full-width NCSN++ (seeded weights, bfloat16 compute, channels_last)
+and evaluates it on a (4, 1, 256, 256) input (four 2.04-s utterances), as one
+step of the PC sampler does:
+
+- wall time per evaluation: CUDA events around windows of 20 back-to-back
+  evaluations (no synchronisation inside a window, as in the sampler's loop),
+  after warm-up; the median of three windows, and all three;
+- a ``torch.profiler`` trace of 5 evaluations, from which the device's
+  busy time (kernel intervals merged), its idle share over the traced span,
+  the kernel launches and the kernel time per kind of op are read.
+
+The trace inflates host time, so the idle share of the traced span is an upper
+bound; the busy time against the untraced wall time gives the other reading.
+Prints one JSON line; writes the trace to ``DIR/nfe_trace.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+BATCH, FRAMES = 4, 256  # the main path's batch of 2.04-s utterances
+REPS = 20               # evaluations per timed window
+TRACED = 5              # profiled evaluations
+
+KINDS = (  # (kind, substrings of the kernel name), first match wins
+    ("K2 group_norm_act", ("gn_partial", "gn_stats", "gn_apply")),
+    ("K1 upfirdn2d", ("upfirdn2d",)),
+    ("convolution (cuDNN)", ("fprop", "nhwcAddPadding", "cudnn")),
+    ("matmul", ("nvjet", "gemm")),
+    ("dtype casts", ("copy_kernel",)),
+    ("concat", ("CatArray",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kind_of(name: str) -> str:
+    for kind, keys in KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def breakdown(events, evaluations: int) -> dict:
+    """Device busy time, idle share and kernel time per kind, per evaluation,
+    from the events of a chrome trace (``cat == "kernel"``, times in us)."""
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    if not kernels:
+        raise ValueError("the trace holds no device kernels")
+    busy, cur_start, cur_end = 0.0, None, None
+    per_kind: dict = {}
+    for e in kernels:
+        start, end = e["ts"], e["ts"] + e["dur"]
+        if cur_end is None or start > cur_end:
+            busy += 0.0 if cur_end is None else cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+        kind = kind_of(e["name"])
+        ms, n = per_kind.get(kind, (0.0, 0))
+        per_kind[kind] = (ms + e["dur"] / 1000.0, n + 1)
+    busy += cur_end - cur_start
+    span = max(e["ts"] + e["dur"] for e in kernels) - kernels[0]["ts"]
+    return dict(
+        busy_ms=busy / 1000.0 / evaluations,
+        span_ms=span / 1000.0 / evaluations,
+        idle_share_traced=1.0 - busy / span,
+        launches=len(kernels) / evaluations,
+        kinds={k: dict(ms=ms / evaluations, launches=n / evaluations)
+               for k, (ms, n) in sorted(per_kind.items(), key=lambda kv: -kv[1][0])})
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", type=str, default="chiprun_out")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("nfe_profile runs on the card only")
+    from .model import ScoreModel
+
+    dev = torch.device("cuda", 0)
+    model = ScoreModel("ncsnpp", "ouve", precision="bfloat16", init_scale=1.0)
+    model.init_params(torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(0)
+    shape = (BATCH, 1, 256, FRAMES)
+    x, y = (torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                             .astype(np.complex64) * 0.3).to(dev) for _ in range(2))
+    t = torch.full((BATCH,), 0.5, device=dev)
+
+    with torch.inference_mode():
+        for _ in range(3):
+            model(x, y, t)
+        times = []
+        for _ in range(3):  # windows of back-to-back evaluations, as the sampler runs them
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPS):
+                model(x, y, t)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / REPS)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(TRACED):
+                model(x, y, t)
+            torch.cuda.synchronize()
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / "nfe_trace.json"
+    prof.export_chrome_trace(str(trace))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    result = dict(card=card.splitlines()[0] if card else torch.cuda.get_device_name(0),
+                  batch=BATCH, frames=FRAMES,
+                  wall_ms=statistics.median(times), wall_ms_windows=times,
+                  **breakdown(json.loads(trace.read_text())["traceEvents"], TRACED))
+    result["idle_share_untraced"] = 1.0 - result["busy_ms"] / result["wall_ms"]
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,152 @@
+"""Fused upsample -> FIR filter -> downsample (upfirdn2d) and the StyleGAN2-style
+resampling built on it. Counterpart of ``sgmse_tpu/ops/upfirdn2d.py``.
+
+Tensors are NCHW-indexed; on the score network's path they lie in
+``torch.channels_last`` memory (physically the JAX package's NHWC).
+
+Semantics, as in the JAX package:
+
+    1. zero-stuff upsample by ``up`` (each sample followed by up-1 zeros),
+    2. pad by (pad0, pad1) per spatial axis (negative => crop),
+    3. correlate with the *flipped* 2-D FIR kernel,
+    4. subsample with stride ``down``.
+
+    out_size = (in*up + pad0 + pad1 - k) // down + 1
+
+:func:`upfirdn2d` dispatches on the device of its input: a CPU tensor goes
+through :func:`upfirdn2d_plain`, a CUDA tensor through the hand-written kernel
+``csrc/upfirdn2d.cu`` (:func:`upfirdn2d_cuda`), which raises on anything it does
+not take. The kernel replaces the XLA depthwise convolution of
+``sgmse_tpu/ops/upfirdn2d.py:84-139``; the source note at the top of the ``.cu``
+file says what bounds it on the H100 and what the design does about it.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+
+Kernel = Union[Sequence[float], np.ndarray]
+
+
+def setup_kernel(k: Kernel) -> np.ndarray:
+    """Normalize a FIR kernel: 1-D kernels become outer products; sum normalized to 1."""
+    k = np.asarray(k, dtype=np.float32)
+    if k.ndim == 1:
+        k = np.outer(k, k)
+    k = k / np.sum(k)
+    assert k.ndim == 2 and k.shape[0] == k.shape[1]
+    return k
+
+
+def _out_size(n: int, k: int, up: int, down: int, pad0: int, pad1: int) -> int:
+    return (n * up + pad0 + pad1 - k) // down + 1
+
+
+def upfirdn2d_plain(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
+                    pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Plain PyTorch upfirdn2d on (B, C, H, W): float32 arithmetic, result in
+    x's dtype and in channels_last memory. ``kernel`` may be a tensor already
+    on x's device, which saves a host-to-device copy of the taps per call."""
+    k = torch.as_tensor(kernel, dtype=torch.float32, device=x.device)
+    assert k.ndim == 2
+    pad0, pad1 = pad
+    b, c, h, w = x.shape
+    out = x.float()
+    if up > 1:
+        out = out.reshape(b, c, h, 1, w, 1)
+        out = F.pad(out, [0, up - 1, 0, 0, 0, up - 1])
+        out = out.reshape(b, c, h * up, w * up)
+    out = F.pad(out, [max(pad0, 0), max(pad1, 0), max(pad0, 0), max(pad1, 0)])
+    out = out[:, :, max(-pad0, 0):out.shape[2] - max(-pad1, 0),
+              max(-pad0, 0):out.shape[3] - max(-pad1, 0)]
+    weight = torch.flip(k, [0, 1])[None, None].expand(c, 1, *k.shape).contiguous()
+    out = F.conv2d(out, weight, stride=down, groups=c)
+    return out.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def upfirdn2d_cuda(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
+                   pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Launch the hand-written kernel. Takes a CUDA tensor (B, C, H, W) in
+    channels_last memory, float32 or bfloat16, C a multiple of 4, up and down in
+    {1, 2} and an FIR of at most 4x4; raises on anything else."""
+    k = np.ascontiguousarray(kernel, dtype=np.float32)
+    pad0, pad1 = pad
+    if x.device.type != "cuda":
+        raise ValueError(f"upfirdn2d_cuda takes a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"upfirdn2d_cuda takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4 or not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("upfirdn2d_cuda takes a 4-D tensor in channels_last memory")
+    b, c, h, w = x.shape
+    if c % 4 or up not in (1, 2) or down not in (1, 2) or k.ndim != 2 or max(k.shape) > 4:
+        raise ValueError(f"upfirdn2d_cuda: unsupported C={c}, up={up}, down={down}, "
+                         f"kernel {k.shape}")
+    if x.data_ptr() % 16:
+        raise ValueError("upfirdn2d_cuda: input is not 16-byte aligned")
+    oh = _out_size(h, k.shape[0], up, down, pad0, pad1)
+    ow = _out_size(w, k.shape[1], up, down, pad0, pad1)
+    if oh < 1 or ow < 1:
+        raise ValueError(f"upfirdn2d_cuda: empty output {oh}x{ow}")
+    if max(x.numel(), b * c * oh * ow) >= 2**31:
+        raise ValueError("upfirdn2d_cuda: tensor too large for 32-bit indexing")
+    y = torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    err = kernels.lib().sgmse_upfirdn2d(
+        x.data_ptr(), y.data_ptr(), k.ctypes.data, k.shape[0], k.shape[1], b, h, w, c,
+        oh, ow, up, down, pad0, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "upfirdn2d kernel")
+    upfirdn2d_cuda.launches += 1
+    return y
+
+
+upfirdn2d_cuda.launches = 0
+
+
+def upfirdn2d(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
+              pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """upfirdn2d on (B, C, H, W), same up/down/pad on both spatial axes."""
+    if x.device.type == "cuda":
+        return upfirdn2d_cuda(x, kernel, up, down, pad)
+    if x.device.type == "cpu":
+        return upfirdn2d_plain(x, kernel, up, down, pad)
+    raise ValueError(f"upfirdn2d: unsupported device {x.device}")
+
+
+def upsample_2d(x: torch.Tensor, k: Kernel = None, factor: int = 2, gain: float = 1.0):
+    """FIR upsample by `factor` (JAX ``upsample_2d``)."""
+    assert isinstance(factor, int) and factor >= 1
+    if k is None:
+        k = [1.0] * factor
+    k = setup_kernel(k) * (gain * (factor**2))
+    p = k.shape[0] - factor
+    return upfirdn2d(x, k, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
+
+
+def downsample_2d(x: torch.Tensor, k: Kernel = None, factor: int = 2, gain: float = 1.0):
+    """FIR downsample by `factor` (JAX ``downsample_2d``)."""
+    assert isinstance(factor, int) and factor >= 1
+    if k is None:
+        k = [1.0] * factor
+    k = setup_kernel(k) * gain
+    p = k.shape[0] - factor
+    return upfirdn2d(x, k, down=factor, pad=((p + 1) // 2, p // 2))
+
+
+def naive_upsample_2d(x: torch.Tensor, factor: int = 2):
+    """Nearest-neighbour upsample (JAX ``naive_upsample_2d``)."""
+    b, c, h, w = x.shape
+    x = x[:, :, :, None, :, None].expand(b, c, h, factor, w, factor)
+    return x.reshape(b, c, h * factor, w * factor).contiguous(memory_format=torch.channels_last)
+
+
+def naive_downsample_2d(x: torch.Tensor, factor: int = 2):
+    """Mean-pool downsample (JAX ``naive_downsample_2d``)."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // factor, factor, w // factor, factor)
+    return x.mean(dim=(3, 5)).contiguous(memory_format=torch.channels_last)

@@ -1,0 +1,33 @@
+"""The per-evaluation breakdown of sgmse_tpu_torch.nfe_profile, on a made-up
+trace: overlapping kernels count once towards busy time, gaps are idle."""
+import pytest
+
+from sgmse_tpu_torch import nfe_profile
+
+
+def _kernel(name, ts, dur):
+    return {"cat": "kernel", "name": name, "ts": ts, "dur": dur}
+
+
+def test_breakdown_merges_intervals_and_sorts_kinds():
+    events = [
+        {"cat": "cpu_op", "name": "aten::conv2d", "ts": 0.0, "dur": 500.0},
+        _kernel("void (anonymous namespace)::gn_apply_kernel<__nv_bfloat16>", 0.0, 100.0),
+        _kernel("void (anonymous namespace)::upfirdn2d_kernel<float>", 50.0, 100.0),
+        _kernel("sm90_xmma_fprop_implicit_gemm_bf16bf16", 300.0, 300.0),
+        _kernel("void at::native::vectorized_elementwise_kernel<8, add>", 800.0, 200.0),
+    ]
+    got = nfe_profile.breakdown(events, evaluations=2)
+    # busy: [0, 150] + [300, 600] + [800, 1000] = 650 us over a 1000 us span
+    assert got["busy_ms"] == pytest.approx(0.325)
+    assert got["span_ms"] == pytest.approx(0.5)
+    assert got["idle_share_traced"] == pytest.approx(0.35)
+    assert got["launches"] == 2
+    assert list(got["kinds"]) == ["convolution (cuDNN)", "elementwise", "K2 group_norm_act",
+                                  "K1 upfirdn2d"]
+    assert got["kinds"]["K1 upfirdn2d"] == {"ms": pytest.approx(0.05), "launches": 0.5}
+
+
+def test_breakdown_refuses_a_trace_without_device_work():
+    with pytest.raises(ValueError, match="no device kernels"):
+        nfe_profile.breakdown([{"cat": "cpu_op", "name": "aten::add", "ts": 0, "dur": 1}], 1)

@@ -1,0 +1,122 @@
+"""The port's PC sampler (sgmse_tpu_torch.sampling) against the JAX package's.
+
+Both sides get an analytic score (the exact score of the OUVE perturbation
+kernel around a known clean state), numpy inputs, and the same noise: the
+port is fed the complex normals that JAX's ``crandn`` draws from the keys the
+JAX step splits. Tolerance: 1e-5 relative to max|ref| for single steps, 1e-4
+for a whole trajectory (float32 time grids rounded in two libraries).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sgmse_tpu import sampling as js
+from sgmse_tpu import sdes as jsdes
+from sgmse_tpu_torch import sampling, sdes
+
+
+def _close(got, ref, rtol):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= rtol * np.abs(ref).max()
+
+
+def _cplx(seed, shape=(2, 1, 8, 6), scale=1.0):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * scale
+            ).astype(np.complex64)
+
+
+def _oracle(sde, x0):
+    """Exact score of p_t(x | x0, y) = CN(mean(t), std(t)^2) for either framework."""
+    def score(x, y, t):
+        mean, std = sde.marginal_prob(x0, y, t)
+        return -(x - mean) / (std[:, None, None, None] ** 2)
+    return score
+
+
+@pytest.fixture
+def problem():
+    x0, y = _cplx(0, scale=0.3), _cplx(1, scale=0.3)
+    return x0, y, _cplx(2), np.array([0.7, 0.2], np.float32)
+
+
+def test_registries():
+    assert {"reverse_diffusion", "none"} <= set(sampling.PredictorRegistry.get_all_names())
+    assert {"ald", "none"} <= set(sampling.CorrectorRegistry.get_all_names())
+
+
+@pytest.mark.parametrize("n_steps", [1, 2])
+def test_ald_step_with_jax_noise(problem, n_steps):
+    x0, y, x, t = problem
+    jsde, psde = jsdes.OUVESDE(), sdes.OUVESDE()
+    key = jax.random.key(11)
+    ref = js.ald_corrector(jsde, _oracle(jsde, jnp.asarray(x0)), snr=0.5, n_steps=n_steps)(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(t), key)
+    noise, k = [], key
+    for _ in range(n_steps):  # the keys the JAX step splits, in its order
+        k, sub = jax.random.split(k)
+        noise.append(np.asarray(jsdes.crandn(sub, x.shape)))
+    got = sampling.ald_corrector(psde, _oracle(psde, torch.from_numpy(x0)), 0.5, n_steps)(
+        torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(t),
+        noise=torch.from_numpy(np.stack(noise)))
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-5)
+
+
+def test_reverse_diffusion_step_with_jax_noise(problem):
+    x0, y, x, t = problem
+    jsde, psde = jsdes.OUVESDE(), sdes.OUVESDE()
+    z = _cplx(3)
+    ref = js.reverse_diffusion_predictor(jsde, _oracle(jsde, jnp.asarray(x0)))(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(t), 0.0334, None, noise=jnp.asarray(z))
+    got = sampling.reverse_diffusion_predictor(psde, _oracle(psde, torch.from_numpy(x0)))(
+        torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(t),
+        torch.tensor(0.0334), noise=torch.from_numpy(z))
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-5)
+
+
+def test_pc_trajectory_with_injected_noise(problem):
+    """Prior and every predictor step's noise injected on both sides (JAX inject_steps)."""
+    x0, y, _, _ = problem
+    n = 6
+    jsde, psde = jsdes.OUVESDE(N=n), sdes.OUVESDE(N=n)
+    z = np.stack([_cplx(10 + i) for i in range(n + 1)])
+    program, nfe = js.pc_sampler_program("reverse_diffusion", "none", jsde,
+                                         _oracle(jsde, jnp.asarray(x0)), eps=0.03,
+                                         inject_steps=True)
+    ref = program(jax.random.key(0), jnp.asarray(y), jnp.asarray(z))
+    got, pnfe = sampling.pc_sampler("reverse_diffusion", "none", psde,
+                                    _oracle(psde, torch.from_numpy(x0)), torch.from_numpy(y),
+                                    eps=0.03, noise=torch.from_numpy(z))
+    assert pnfe == nfe == n
+    _close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("corrector,nfe", [("ald", 60), ("none", 30)])
+def test_pc_sampler_inverts_diffusion(corrector, nfe):
+    """With the exact score the sampler recovers the clean state (as tests/test_sampling.py)."""
+    psde = sdes.OUVESDE(N=30)
+    gen = torch.Generator().manual_seed(0)
+    x0 = sdes.crandn((2, 1, 16, 16), gen) * 0.3
+    y = x0 + sdes.crandn((2, 1, 16, 16), gen) * 0.1
+    sample, got_nfe = sampling.pc_sampler("reverse_diffusion", corrector, psde,
+                                          _oracle(psde, x0), y, generator=gen, snr=0.5)
+    assert got_nfe == nfe
+    assert (torch.linalg.norm(sample - x0) / torch.linalg.norm(x0)).item() < 0.15
+
+
+def test_corrector_noise_hook_makes_runs_repeat(problem):
+    x0, y, _, _ = problem
+    psde = sdes.OUVESDE(N=4)
+    z = torch.from_numpy(np.stack([_cplx(20 + i) for i in range(5)]))
+    cz = torch.from_numpy(np.stack([_cplx(30 + i) for i in range(4)])[:, None])
+    runs = [sampling.pc_sampler("reverse_diffusion", "ald", psde,
+                                _oracle(psde, torch.from_numpy(x0)), torch.from_numpy(y),
+                                generator=torch.Generator().manual_seed(seed), snr=0.5,
+                                noise=z, corrector_noise=cz)[0] for seed in (1, 2)]
+    assert torch.equal(runs[0], runs[1])
