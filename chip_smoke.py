@@ -10,12 +10,17 @@ passes them all prints the final ``{"ok": true, ...}`` line:
 
 1. card identity (``nvidia-smi`` name and power limit); no CUDA -> fail;
 2. build the hand-written kernels from ``sgmse_tpu_torch/csrc``;
-3. hold each kernel against its plain PyTorch version at every shape the
-   full-width NCSN++ gives it (B=4, F=T=256), in float32 and bfloat16, and
-   time both with CUDA events (median of 25 launches);
+3. hold each kernel against its plain PyTorch version at every call signature
+   the full-width NCSN++ gives it (B=4, F=T=256; group_norm_act with and
+   without its pre-bias, upfirdn2d single and paired), in float32 and
+   bfloat16; check that group_norm_act repeats bit for bit; check each library
+   yardstick against the plain version of the function it computes; then time
+   kernel, plain and library in bfloat16 as device time (CUDA graphs of 25
+   back-to-back calls, ``sgmse_tpu_torch.kernel_times``) beside each call's
+   byte/operation bound;
 4. full-width forward (65.59M params, seeded weights) through the kernels and
    through the plain versions: relative error, and the launch counts per
-   forward (36 upfirdn2d, 109 group_norm_act);
+   forward (24 upfirdn2d, 109 group_norm_act);
 5. the main path through the entry point ``sgmse_tpu_torch.enhance.main`` on
    four 2.04 s wavs (PC N=30, ald corrector, bf16), with the launch counts of
    that run; then the same path on a short input through the kernels and
@@ -23,9 +28,7 @@ passes them all prints the final ``{"ok": true, ...}`` line:
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
-import contextlib
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -36,10 +39,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
-B, F_BINS, T_FRAMES = 4, 256, 256
+B = 4
 WAV_LEN = 32640  # 2.04 s at 16 kHz: 256 STFT frames at hop 128
 SEED = 0
-REPS = 25
 # Tolerances, relative to max|plain| of each comparison.
 TOL = {
     # f32: sums of <= 16 taps, or group statistics, in another order.
@@ -52,7 +54,7 @@ TOL = {
 }
 FORWARD_TOL = 1e-3     # full f32 forward, kernels vs plain, relative to max|plain|
 ENHANCE_TOL = 1e-3     # short f32 enhance, kernels vs plain, relative to max|plain|
-PER_FORWARD = {"upfirdn2d": 36, "group_norm_act": 109}
+PER_FORWARD = {"upfirdn2d": 24, "group_norm_act": 109}
 REPLACES = {
     "upfirdn2d": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
     "group_norm_act": ("sgmse_tpu_torch/csrc/group_norm_act.cu",
@@ -75,34 +77,6 @@ def card_identity() -> str:
     return card
 
 
-@contextlib.contextmanager
-def routed(calls=None, plain=False):
-    """Route the network's two kernel dispatchers through a recorder of their
-    call signatures (``calls``) and, with ``plain``, to the plain versions."""
-    from sgmse_tpu_torch.ops import group_norm as gn
-    from sgmse_tpu_torch.ops import upfirdn2d as ufd
-
-    orig_u, orig_g = ufd.upfirdn2d, gn.group_norm_act
-
-    def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
-        if calls is not None:
-            calls.append(("upfirdn2d", (tuple(x.shape), up, down, tuple(pad),
-                                        tuple(np.asarray(kernel, np.float32).ravel()))))
-        return (ufd.upfirdn2d_plain if plain else orig_u)(x, kernel, up, down, pad)
-
-    def group_norm_act(x, gamma, beta, num_groups, eps=1e-6, silu=True):
-        if calls is not None:
-            calls.append(("group_norm_act", (tuple(x.shape), num_groups, eps, bool(silu))))
-        return (gn.group_norm_act_plain if plain else orig_g)(x, gamma, beta, num_groups,
-                                                              eps, silu)
-
-    ufd.upfirdn2d, gn.group_norm_act = upfirdn2d, group_norm_act
-    try:
-        yield calls
-    finally:
-        ufd.upfirdn2d, gn.group_norm_act = orig_u, orig_g
-
-
 def counters():
     from sgmse_tpu_torch.ops import group_norm as gn
     from sgmse_tpu_torch.ops import upfirdn2d as ufd
@@ -119,107 +93,72 @@ def reset_counters():
     gn.group_norm_act_cuda.launches = 0
 
 
-def time_ms(fn) -> float:
-    """Median of REPS launches, each bracketed by CUDA events, after warm-up."""
+def as_tuple(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def rel_check(what, got, ref, tol_rel):
+    """max |got - ref| over the tuple's tensors; raise past tol_rel * max|ref|."""
+    got, ref = as_tuple(got), as_tuple(ref)
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{what}: gave {tuple(g.shape)} {g.dtype}, plain "
+                                 f"{tuple(r.shape)} {r.dtype}")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    scale = max(r.float().abs().max().item() for r in ref)
+    if not err <= tol_rel * scale:
+        raise AssertionError(f"{what}: max |diff| {err} > {tol_rel} * {scale}")
+    return err, scale
+
+
+def check_kernels(counts, dev):
+    """Phase 3: every recorded signature, kernel vs plain in float32 and
+    bfloat16, bit-for-bit repeats of group_norm_act, each library yardstick vs
+    the plain version of its function; bf16 device times and bounds."""
     import torch
-
-    for _ in range(3):
-        fn()
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(REPS)]
-    for start, end in ev:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in ev)
-
-
-def full_model(dev):
-    """The default (full-width) ScoreModel with seeded weights. init_scale 1
-    instead of the DDPM 0 (1e-10), so that every layer contributes to the output."""
-    import torch
-    from sgmse_tpu_torch.model import ScoreModel
-
-    model = ScoreModel("ncsnpp", "ouve", init_scale=1.0)
-    model.init_params(torch.Generator().manual_seed(SEED))
-    return model.to(dev, memory_format=torch.channels_last).eval()
-
-
-def network_inputs(dev):
-    import torch
-
-    rng = np.random.default_rng(SEED)
-    shape = (B, 1, F_BINS, T_FRAMES)
-    cplx = lambda: (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * 0.3
-    x, y = cplx().astype(np.complex64), cplx().astype(np.complex64)
-    t = rng.uniform(0.03, 1.0, (B,)).astype(np.float32)
-    return tuple(torch.from_numpy(a).to(dev) for a in (x, y, t))
-
-
-def check_kernels(calls, dev):
-    """Phase 3: every recorded signature, kernel vs plain, float32 and bfloat16."""
-    import torch
-    from sgmse_tpu_torch.ops import group_norm as gn
-    from sgmse_tpu_torch.ops import upfirdn2d as ufd
+    from sgmse_tpu_torch import kernel_times as kt
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    sigs = {}
-    for name, sig in calls:
-        sigs[(name, sig)] = sigs.get((name, sig), 0) + 1
     rows = []
-    for (name, sig), per_forward in sigs.items():
-        shape = sig[0]
+    for (name, sig), per_forward in counts.items():
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            x = x.contiguous(memory_format=torch.channels_last)
-            if name == "upfirdn2d":
-                _, up, down, pad, taps = sig
-                k = np.asarray(taps, np.float32).reshape(4, 4)
-                k_dev = torch.from_numpy(k).to(dev)  # no taps copy inside the plain's bracket
-                run_k = lambda: ufd.upfirdn2d_cuda(x, k, up, down, pad)
-                run_p = lambda: ufd.upfirdn2d_plain(x, k_dev, up, down, pad)
-            else:
-                _, groups, eps, silu = sig
-                c = shape[1]
-                gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
-                beta = 0.1 * torch.randn(c, generator=gen, device=dev)
-                run_k = lambda: gn.group_norm_act_cuda(x, gamma, beta, groups, eps, silu)
-                run_p = lambda: gn.group_norm_act_plain(x, gamma, beta, groups, eps, silu)
-            got, ref = run_k(), run_p()
+            case = kt.make_case(name, sig, dtype, dev, gen)
+            dt = case["dtype"]
+            tol = TOL[(name, dt)]
+            got, ref = case["kernel"](), case["plain"]()
             torch.cuda.synchronize()
-            if got.shape != ref.shape or got.dtype != ref.dtype:
-                raise AssertionError(f"{name} {sig}: kernel gave {tuple(got.shape)} {got.dtype}, "
-                                     f"plain {tuple(ref.shape)} {ref.dtype}")
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            tol = TOL[(name, str(dtype).split(".")[-1])] * scale
-            label = (f"{shape} up={sig[1]} down={sig[2]} pad={sig[3]}" if name == "upfirdn2d"
-                     else f"{shape} groups={sig[1]} silu={sig[3]}")
-            row = dict(kernel=name, sig=label, dtype=str(dtype).split(".")[-1],
-                       per_forward=per_forward, max_abs_err=err, max_abs_ref=scale, tol=tol)
-            if not err <= tol:
-                raise AssertionError(f"{name} {sig} {dtype}: max |kernel - plain| {err} > {tol}")
+            err, scale = rel_check(f"{name} {case['sig']} {dt}", got, ref, tol)
+            if name == "group_norm_act" and not torch.equal(got, case["kernel"]()):
+                raise AssertionError(f"{name} {case['sig']} {dt}: two runs differ")
+            row = dict(name=name, sig=case["sig"], dtype=dt, per_forward=per_forward,
+                       max_abs_err=err, max_abs_ref=scale, tol=tol * scale)
+            if "library" in case:
+                row["library_err"], _ = rel_check(f"{name} library {case['sig']} {dt}",
+                                                  case["library"](), case["library_ref"](), tol)
             if dtype == torch.bfloat16:  # the main path's dtype
-                row["ms"], row["plain_ms"] = time_ms(run_k), time_ms(run_p)
+                timed = kt.time_case(case)
+                row.update({k: timed[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "bytes", "ops")})
             rows.append(row)
+            del case, got, ref
+        torch.cuda.empty_cache()
     return rows
 
 
 def summarize(rows, launches):
+    from sgmse_tpu_torch import kernel_times as kt
+
+    sums = kt.per_nfe([r for r in rows if "ms" in r])
     out = []
     for name in PER_FORWARD:
-        mine = [r for r in rows if r["kernel"] == name]
-        timed = [r for r in mine if "ms" in r]
+        mine = [r for r in rows if r["name"] == name]
         source, replaces = REPLACES[name]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in mine if r["dtype"] == "float32"),
             max_abs_err_bf16=max(r["max_abs_err"] for r in mine if r["dtype"] == "bfloat16"),
-            # per network evaluation: each bf16 shape's median times its calls per forward
-            ms=sum(r["ms"] * r["per_forward"] for r in timed),
-            plain_ms=sum(r["plain_ms"] * r["per_forward"] for r in timed)))
+            **sums[name]))  # per network evaluation, from the bf16 device times
     return out
 
 
@@ -258,41 +197,49 @@ def main():
                                        if (so.parent / "build.log").exists() else "cached\n")
 
     # --- 3. kernels vs plain at the main path's shapes ---------------------------------
-    model = full_model(dev)
+    from sgmse_tpu_torch import kernel_times as kt
+
+    model = kt.full_model(dev)
     n_params = sum(p.numel() for p in model.parameters())
-    x, y, t = network_inputs(dev)
+    x, y, t = kt.network_inputs(dev)
     with torch.inference_mode():
-        with routed(calls=[], plain=True) as calls:
+        with kt.routed(calls=[], plain=True) as calls:
             out_plain = model.dnn(x, y, t)
-    rows = check_kernels(calls, dev)
-    n_sigs = {k: len({r["sig"] for r in rows if r["kernel"] == k}) for k in PER_FORWARD}
-    print(f"kernel checks: {len(rows)} passed over {n_sigs} shapes, tolerances {TOL}")
+    counts = kt.per_forward(calls)
+    rows = check_kernels(counts, dev)
+    n_sigs = {k: sum(1 for n, _ in counts if n == k) for k in PER_FORWARD}
+    print(f"kernel checks: {len(rows)} passed over {n_sigs} call signatures (f32, bf16; "
+          f"group_norm_act repeats bit for bit; library yardsticks agree), tolerances {TOL}")
     for r in rows:
         if "ms" in r:
-            print(f"  {r['kernel']:15s} x{r['per_forward']} {r['sig']}: bf16 {r['ms']:.4f} ms "
-                  f"(plain {r['plain_ms']:.4f} ms)")
+            lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"  {r['name']:15s} x{r['per_forward']} {r['sig']}: bf16 device "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library {lib}, "
+                  f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     report["kernel_checks"] = rows
 
     # --- 4. full-width forward, kernels vs plain -----------------------------------------
-    silu_split = [sum(1 for n, s in calls if n == "group_norm_act" and s[3] == flag)
-                  for flag in (True, False)]
-    before = counters()
+    gn_sigs = [s for n, s in calls if n == "group_norm_act"]
+    silu_split = [sum(1 for s in gn_sigs if s[3] == flag) for flag in (True, False)]
+    with_bias = sum(1 for s in gn_sigs if s[4])
+    reset_counters()
     with torch.inference_mode():
         out_kernel = model.dnn(x, y, t)
     torch.cuda.synchronize()
-    moved = {k: counters()[k] - before[k] for k in before}
+    moved = counters()
     rel = ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item()
-    print(f"full forward: {n_params} params, B={B} F={F_BINS} T={T_FRAMES} f32, "
-          f"kernels vs plain rel err {rel:.3e} (bound {FORWARD_TOL}); launches {moved}, "
-          f"group_norm_act with/without SiLU {silu_split}")
+    print(f"full forward: {n_params} params, B={B} F=T={kt.F_BINS} f32, kernels vs plain "
+          f"rel err {rel:.3e} (bound {FORWARD_TOL}); launches {moved}, group_norm_act "
+          f"with/without SiLU {silu_split}, with the temb pre-bias {with_bias}")
     if n_params != 65_590_822:
         raise AssertionError(f"expected the 65.59M-param flagship, got {n_params}")
     if not (torch.isfinite(out_kernel).all() and rel <= FORWARD_TOL):
         raise AssertionError(f"full forward: kernels vs plain rel err {rel} > {FORWARD_TOL}")
-    if moved != PER_FORWARD or silu_split != [105, 4]:
-        raise AssertionError(f"launches per forward {moved}, SiLU split {silu_split}; "
-                             f"expected {PER_FORWARD} and [105, 4]")
-    report["forward"] = dict(params=n_params, rel_err=rel, launches=moved, silu_split=silu_split)
+    if moved != PER_FORWARD or silu_split != [105, 4] or with_bias != 49:
+        raise AssertionError(f"launches per forward {moved}, SiLU split {silu_split}, "
+                             f"pre-bias {with_bias}; expected {PER_FORWARD}, [105, 4], 49")
+    report["forward"] = dict(params=n_params, rel_err=rel, launches=moved,
+                             silu_split=silu_split, pre_bias=with_bias)
 
     # --- 5. main path through the entry point ------------------------------------------
     from sgmse_tpu_torch import convert, enhance
@@ -334,7 +281,7 @@ def main():
     short = np.asarray(wavs[0][:16000], np.float32)
     kw = dict(N=5, corrector="ald", snr=0.5)
     got = model.enhance(short, generator=torch.Generator(device=dev).manual_seed(1), **kw)
-    with routed(plain=True):
+    with kt.routed(plain=True):
         ref = model.enhance(short, generator=torch.Generator(device=dev).manual_seed(1), **kw)
     rel_e = float(np.abs(got - ref).max() / np.abs(ref).max())
     print(f"short enhance, kernels vs plain: rel err {rel_e:.3e} (bound {ENHANCE_TOL})")

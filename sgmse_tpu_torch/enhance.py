@@ -83,9 +83,16 @@ def _chunks(items, batch_size: int, hop: int):
             for i in range(0, len(group), batch_size)]
 
 
-def main(argv=None) -> dict:
+def main(argv=None, device=None) -> dict:
+    """Enhance every wav of ``--test_dir``. Runs on the card; ``device="cpu"``
+    (not a command-line flag) runs the plain versions on the CPU, for tests."""
     args = build_parser().parse_args(argv)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("sgmse_tpu_torch.enhance runs on a CUDA device, and "
+                               "torch.cuda.is_available() is false")
+        device = "cuda"
+    device = torch.device(device)
     config = dict(nf=args.nf, ch_mult=args.ch_mult, num_res_blocks=args.num_res_blocks,
                   attn_resolutions=args.attn_resolutions, centered=args.centered,
                   precision=args.precision)

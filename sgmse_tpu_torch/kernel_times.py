@@ -1,0 +1,301 @@
+"""Device time of the port's kernels at every shape of the full-width main path.
+
+    python -m sgmse_tpu_torch.kernel_times [--out FILE]
+    python sgmse_tpu_torch/kernel_times.py --root DIR [--out FILE]
+
+Records the calls that one evaluation of the full-width NCSN++ (seeded
+weights, B=4, F=T=256) makes to the two kernel dispatchers, then, for each
+distinct call signature, in bfloat16 (the main path's dtype), times:
+
+- the kernel, its plain PyTorch version and the library yardstick (the one
+  PyTorch call that computes the same function, where there is one): a CUDA
+  graph of ``REPS`` back-to-back calls on the same inputs, replayed three
+  times, each replay bracketed by CUDA events; the median over ``REPS``. The
+  graph holds no host launch cost, so this is device time. The inputs stay in
+  the 50 MB L2 between calls where they fit, as in the network, where each
+  kernel reads what the layer before it has just written;
+- the bound: the larger of the bytes the call must move (each input read once,
+  each output written once) over 3.35 TB/s and its float32 operations over
+  67 TFLOP/s, the H100 SXM's published peaks.
+
+Per network evaluation, each is the sum over signatures of its time times the
+signature's calls per evaluation. Prints one JSON line (and writes it to
+``--out``). With ``--root``, the ``sgmse_tpu_torch`` of checkout DIR is timed
+in place of this one, so that another commit's kernels (unpacked with
+``git archive``) are measured by the same code; the library yardsticks are
+never called by the port. ``chip_smoke.py`` uses the same functions.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib
+import json
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+B, F_BINS, T_FRAMES = 4, 256, 256  # four 2.04-s utterances
+SEED = 0
+REPS = 25
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+K2_LIBRARY_NOTE = ("F.group_norm: the same function on the calls without SiLU and "
+                   "pre-bias; on the others it computes GN only (no one-call "
+                   "equivalent with SiLU or the pre-bias)")
+K1_LIBRARY_NOTE = ("depthwise cuDNN: F.conv2d(stride 2, padding 1, groups C) with the "
+                   "flipped FIR for down, F.conv_transpose2d(stride 2, padding 1, "
+                   "groups C) with the FIR for up; one call per tensor of a pair")
+
+
+def ops_modules():
+    gn = importlib.import_module("sgmse_tpu_torch.ops.group_norm")
+    ufd = importlib.import_module("sgmse_tpu_torch.ops.upfirdn2d")
+    return gn, ufd
+
+
+@contextlib.contextmanager
+def routed(calls=None, plain=False):
+    """Route the network's kernel dispatchers through a recorder of their call
+    signatures (appended to ``calls``) and, with ``plain``, to the plain
+    versions. Works for checkouts with and without the pair launch and the
+    pre-bias."""
+    gn, ufd = ops_modules()
+    orig = {"gn": gn.group_norm_act, "u": ufd.upfirdn2d,
+            "pair": getattr(ufd, "upfirdn2d_pair", None)}
+
+    def taps(kernel):
+        return tuple(float(v) for v in np.asarray(kernel, np.float32).ravel())
+
+    def group_norm_act(x, gamma, beta, num_groups, eps=1e-6, silu=True, pre_bias=None):
+        if calls is not None:
+            calls.append(("group_norm_act", (tuple(x.shape), num_groups, eps, bool(silu),
+                                             pre_bias is not None)))
+        fn = gn.group_norm_act_plain if plain else orig["gn"]
+        args = (x, gamma, beta, num_groups, eps, silu)
+        return fn(*args) if pre_bias is None else fn(*args, pre_bias)
+
+    def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+        if calls is not None:
+            calls.append(("upfirdn2d", (tuple(x.shape), up, down, tuple(pad), taps(kernel), 1)))
+        return (ufd.upfirdn2d_plain if plain else orig["u"])(x, kernel, up, down, pad)
+
+    def upfirdn2d_pair(x0, x1, kernel, up=1, down=1, pad=(0, 0)):
+        if calls is not None:
+            calls.append(("upfirdn2d", (tuple(x0.shape), up, down, tuple(pad), taps(kernel), 2)))
+        return (ufd.upfirdn2d_pair_plain if plain else orig["pair"])(x0, x1, kernel, up, down,
+                                                                     pad)
+
+    gn.group_norm_act, ufd.upfirdn2d = group_norm_act, upfirdn2d
+    if orig["pair"] is not None:
+        ufd.upfirdn2d_pair = upfirdn2d_pair
+    try:
+        yield calls
+    finally:
+        gn.group_norm_act, ufd.upfirdn2d = orig["gn"], orig["u"]
+        if orig["pair"] is not None:
+            ufd.upfirdn2d_pair = orig["pair"]
+
+
+def full_model(dev, precision="float32"):
+    """The default (full-width) ScoreModel with seeded weights. init_scale 1
+    instead of the DDPM 0 (1e-10), so that every layer contributes to the output."""
+    from sgmse_tpu_torch.model import ScoreModel
+
+    model = ScoreModel("ncsnpp", "ouve", init_scale=1.0, precision=precision)
+    model.init_params(torch.Generator().manual_seed(SEED))
+    return model.to(dev, memory_format=torch.channels_last).eval()
+
+
+def network_inputs(dev):
+    rng = np.random.default_rng(SEED)
+    shape = (B, 1, F_BINS, T_FRAMES)
+    cplx = lambda: (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * 0.3
+    x, y = cplx().astype(np.complex64), cplx().astype(np.complex64)
+    t = rng.uniform(0.03, 1.0, (B,)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, y, t))
+
+
+def per_forward(calls):
+    """{(name, signature): calls per evaluation}, in first-call order."""
+    counts = {}
+    for key in calls:
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def label(name, sig):
+    if name == "upfirdn2d":
+        shape, up, down, pad, _, n = sig
+        return f"{shape} up={up} down={down} pad={pad}" + (" pair" if n == 2 else "")
+    shape, groups, _, silu, bias = sig
+    return f"{shape} groups={groups} silu={silu}" + (" pre_bias" if bias else "")
+
+
+def make_case(name, sig, dtype, dev, gen):
+    """Inputs and the callables of one signature: ``kernel``, ``plain``, and,
+    where a yardstick exists, ``library`` with ``library_ref`` (the plain version
+    of the function the yardstick computes). Also its bytes and operations."""
+    gn, ufd = ops_modules()
+    shape = sig[0]
+
+    def rand(*s):
+        t = torch.randn(s, generator=gen, device=dev).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if len(s) == 4 else t
+
+    case = dict(name=name, sig=label(name, sig), dtype=str(dtype).split(".")[-1])
+    esize = torch.empty((), dtype=dtype).element_size()
+    if name == "upfirdn2d":
+        _, up, down, pad, taps, n = sig
+        xs = [rand(*shape) for _ in range(n)]
+        k = np.asarray(taps, np.float32).reshape(4, 4)
+        k_dev = torch.from_numpy(k).to(dev)  # no taps copy inside the plain's bracket
+        if n == 2:
+            case["kernel"] = lambda: ufd.upfirdn2d_pair_cuda(xs[0], xs[1], k, up, down, pad)
+        else:
+            case["kernel"] = lambda: ufd.upfirdn2d_cuda(xs[0], k, up, down, pad)
+        case["plain"] = lambda: tuple(ufd.upfirdn2d_plain(x, k_dev, up, down, pad) for x in xs)
+        c = shape[1]
+        if (up, down, tuple(pad)) == (1, 2, (1, 1)):
+            w = torch.flip(k_dev, [0, 1])[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
+            case["library"] = lambda: tuple(F.conv2d(x, w, stride=2, padding=1, groups=c)
+                                            for x in xs)
+        elif (up, down, tuple(pad)) == (2, 1, (2, 1)):
+            w = k_dev[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
+            case["library"] = lambda: tuple(F.conv_transpose2d(x, w, stride=2, padding=1,
+                                                               groups=c) for x in xs)
+        case["library_ref"] = case["plain"]
+        out_elems = shape[0] * c * ((shape[2] * up + sum(pad) - 4) // down + 1) * \
+            ((shape[3] * up + sum(pad) - 4) // down + 1)
+        taps_per_out = 16 // (up * up)
+        case["bytes"] = n * (np.prod(shape) + out_elems) * esize
+        case["ops"] = n * out_elems * taps_per_out * 2
+    else:
+        _, groups, eps, silu, has_bias = sig
+        b, c = shape[:2]
+        x = rand(*shape)
+        gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+        extra = (0.1 * rand(b, c),) if has_bias else ()
+        case["kernel"] = lambda: gn.group_norm_act_cuda(x, gamma, beta, groups, eps, silu, *extra)
+        case["plain"] = lambda: gn.group_norm_act_plain(x, gamma, beta, groups, eps, silu, *extra)
+        # F.group_norm takes its affine in x's dtype; its plain reference gets the same values.
+        gamma_l, beta_l = gamma.to(dtype), beta.to(dtype)
+        case["library"] = lambda: F.group_norm(x, groups, gamma_l, beta_l, eps)
+        case["library_ref"] = lambda: gn.group_norm_act_plain(x, gamma_l.float(), beta_l.float(),
+                                                              groups, eps, False)
+        case["library_same_function"] = not silu and not has_bias
+        n_el = int(np.prod(shape))
+        case["bytes"] = 2 * n_el * esize + 2 * c * 4 + (b * c * esize if has_bias else 0)
+        # sums (add, fma), normalise (sub, mul, add), bias add, SiLU (exp, add, div)
+        case["ops"] = n_el * (5 + int(has_bias) + (3 if silu else 0))
+    bytes_ms = case["bytes"] / PEAK_BYTES_PER_S * 1e3
+    ops_ms = case["ops"] / PEAK_F32_FLOPS * 1e3
+    case["bytes"], case["ops"] = int(case["bytes"]), int(case["ops"])
+    case["bound_ms"] = max(bytes_ms, ops_ms)
+    case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return case
+
+
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Device ms per call: a CUDA graph of ``reps`` back-to-back calls, replayed
+    three times, each replay bracketed by CUDA events; the median replay / reps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the graph (allocator, cuDNN plans)
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def time_case(case) -> dict:
+    """Kernel, plain and library ms of one case, with its bound."""
+    row = {k: case[k] for k in ("name", "sig", "dtype", "bytes", "ops", "bound_ms", "bound_by")}
+    row["ms"] = graph_ms(case["kernel"])
+    row["plain_ms"] = graph_ms(case["plain"])
+    row["library_ms"] = graph_ms(case["library"]) if "library" in case else None
+    return row
+
+
+def record_calls(dev):
+    """The kernel-dispatcher calls of one full-width evaluation (plain route)."""
+    model = full_model(dev)
+    x, y, t = network_inputs(dev)
+    with torch.inference_mode(), routed(calls=[], plain=True) as calls:
+        out = model.dnn(x, y, t)
+    return calls, out, model
+
+
+def per_nfe(rows) -> dict:
+    """Per kernel, per network evaluation: the sums over its timed signatures of
+    each time x the signature's ``per_forward`` calls (each one launch)."""
+    out = {}
+    for name in dict.fromkeys(r["name"] for r in rows):
+        mine = [r for r in rows if r["name"] == name]
+        total = lambda key: sum(r[key] * r["per_forward"] for r in mine)
+        bytes_ms = total("bytes") / PEAK_BYTES_PER_S * 1e3
+        ops_ms = total("ops") / PEAK_F32_FLOPS * 1e3
+        out[name] = dict(
+            launches_per_nfe=sum(r["per_forward"] for r in mine),
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=(None if any(r["library_ms"] is None for r in mine)
+                        else total("library_ms")),
+            library_note=K1_LIBRARY_NOTE if name == "upfirdn2d" else K2_LIBRARY_NOTE)
+    return out
+
+
+def card() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", type=str, default=None,
+                        help="checkout whose sgmse_tpu_torch to time (default: this one)")
+    parser.add_argument("--out", type=str, default=None, help="also write the JSON here")
+    args = parser.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, args.root)
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_times runs on the card only")
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    calls, _, model = record_calls(dev)
+    del model
+    counts = per_forward(calls)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = [dict(time_case(make_case(*key, torch.bfloat16, dev, gen)), per_forward=n)
+            for key, n in counts.items()]
+    result = dict(card=card(), root=args.root or ".", per_nfe=per_nfe(rows), shapes=rows)
+    line = json.dumps(result)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -183,9 +183,12 @@ class GroupNorm(nn.Module):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x):
+    def forward(self, x, pre_bias=None):
+        """GroupNorm of x + pre_bias[:, :, None, None] (pre_bias: (B, C) in the
+        compute dtype, added in float32 inside the kernel), then SiLU if ``silu``."""
         x = x.to(self.dtype or torch.float32).contiguous(memory_format=CL)
-        return gn.group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps, self.silu)
+        return gn.group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps, self.silu,
+                                 pre_bias)
 
 
 class GaussianFourierProjection(nn.Module):
@@ -269,8 +272,10 @@ class AttnBlockpp(nn.Module):
 class ResnetBlockBigGANpp(nn.Module):
     """BigGAN-style residual block with optional FIR up/down.
 
-    The block's activation is swish, fused into the GroupNorm kernel.
-    Inference only: dropout is not applied.
+    The block's activation is swish, fused into the GroupNorm kernel, and so is
+    the time-embedding bias before GroupNorm_1, which the JAX block adds to h in
+    the compute dtype: the port adds it in float32, so in bfloat16 it skips one
+    rounding of the sum. Inference only: dropout is not applied.
     """
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None, up: bool = False,
@@ -291,24 +296,21 @@ class ResnetBlockBigGANpp(nn.Module):
         if in_ch != out_ch or up or down:
             self.Conv_2 = Conv1x1(in_ch, out_ch, dtype=dtype)
 
-    def _resample(self, t):
-        if self.up:
-            return (ufd.upsample_2d(t, self.fir_kernel, factor=2) if self.fir
-                    else ufd.naive_upsample_2d(t, factor=2))
-        if self.down:
-            return (ufd.downsample_2d(t, self.fir_kernel, factor=2) if self.fir
-                    else ufd.naive_downsample_2d(t, factor=2))
-        return t
+    def _resample(self, h, x):
+        """Resample h and the skip x alike; with FIR, in one kernel launch."""
+        if self.fir:
+            pair = ufd.upsample_2d_pair if self.up else ufd.downsample_2d_pair
+            return pair(h, x, self.fir_kernel, factor=2)
+        naive = ufd.naive_upsample_2d if self.up else ufd.naive_downsample_2d
+        return naive(h, factor=2), naive(x, factor=2)
 
     def forward(self, x, temb=None):
         h = self.GroupNorm_0(x)
         if self.up or self.down:
-            h = self._resample(h)
-            x = self._resample(x.contiguous(memory_format=CL))
+            h, x = self._resample(h, x.contiguous(memory_format=CL))
         h = self.Conv_0(h)
-        if temb is not None:
-            h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
-        h = self.GroupNorm_1(h)
+        bias = None if temb is None else self.Dense_0(F.silu(temb))
+        h = self.GroupNorm_1(h, bias)
         h = self.Conv_1(h)
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)

@@ -33,7 +33,7 @@ REPS = 20               # evaluations per timed window
 TRACED = 5              # profiled evaluations
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
-    ("K2 group_norm_act", ("gn_partial", "gn_stats", "gn_apply")),
+    ("K2 group_norm_act", ("gn_act_kernel",)),
     ("K1 upfirdn2d", ("upfirdn2d",)),
     ("convolution (cuDNN)", ("fprop", "nhwcAddPadding", "cudnn")),
     ("matmul", ("nvjet", "gemm")),

@@ -16,9 +16,11 @@ Semantics, as in the JAX package:
 :func:`upfirdn2d` dispatches on the device of its input: a CPU tensor goes
 through :func:`upfirdn2d_plain`, a CUDA tensor through the hand-written kernel
 ``csrc/upfirdn2d.cu`` (:func:`upfirdn2d_cuda`), which raises on anything it does
-not take. The kernel replaces the XLA depthwise convolution of
-``sgmse_tpu/ops/upfirdn2d.py:84-139``; the source note at the top of the ``.cu``
-file says what bounds it on the H100 and what the design does about it.
+not take. :func:`upfirdn2d_pair` does the same for two tensors of one shape,
+such as a res-block's h and skip x, in one launch. The kernel replaces the XLA
+depthwise convolution of ``sgmse_tpu/ops/upfirdn2d.py:84-139``; the source note
+at the top of the ``.cu`` file says what bounds it on the H100 and what the
+design does about it.
 """
 from __future__ import annotations
 
@@ -69,43 +71,68 @@ def upfirdn2d_plain(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
     return out.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def upfirdn2d_cuda(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
-                   pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """Launch the hand-written kernel. Takes a CUDA tensor (B, C, H, W) in
-    channels_last memory, float32 or bfloat16, C a multiple of 4, up and down in
-    {1, 2} and an FIR of at most 4x4; raises on anything else."""
+def _launch(xs: Sequence[torch.Tensor], kernel: Kernel, up: int, down: int,
+            pad: Tuple[int, int]) -> list:
+    """Launch the hand-written kernel once on one tensor or a pair of tensors of
+    the same shape, dtype and device; raises on anything it does not take."""
     k = np.ascontiguousarray(kernel, dtype=np.float32)
     pad0, pad1 = pad
+    x = xs[0]
     if x.device.type != "cuda":
         raise ValueError(f"upfirdn2d_cuda takes a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"upfirdn2d_cuda takes float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 4 or not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("upfirdn2d_cuda takes a 4-D tensor in channels_last memory")
+    for t in xs:
+        if t.ndim != 4 or not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("upfirdn2d_cuda takes 4-D tensors in channels_last memory")
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError("upfirdn2d_pair_cuda takes two tensors of one shape, dtype and device")
+        if t.data_ptr() % 16:
+            raise ValueError("upfirdn2d_cuda: input is not 16-byte aligned")
     b, c, h, w = x.shape
     if c % 4 or up not in (1, 2) or down not in (1, 2) or k.ndim != 2 or max(k.shape) > 4:
         raise ValueError(f"upfirdn2d_cuda: unsupported C={c}, up={up}, down={down}, "
                          f"kernel {k.shape}")
-    if x.data_ptr() % 16:
-        raise ValueError("upfirdn2d_cuda: input is not 16-byte aligned")
     oh = _out_size(h, k.shape[0], up, down, pad0, pad1)
     ow = _out_size(w, k.shape[1], up, down, pad0, pad1)
     if oh < 1 or ow < 1:
         raise ValueError(f"upfirdn2d_cuda: empty output {oh}x{ow}")
     if max(x.numel(), b * c * oh * ow) >= 2**31:
         raise ValueError("upfirdn2d_cuda: tensor too large for 32-bit indexing")
-    y = torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device,
-                    memory_format=torch.channels_last)
+    ys = [torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last) for _ in xs]
     err = kernels.lib().sgmse_upfirdn2d(
-        x.data_ptr(), y.data_ptr(), k.ctypes.data, k.shape[0], k.shape[1], b, h, w, c,
-        oh, ow, up, down, pad0, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), xs[-1].data_ptr(), ys[0].data_ptr(), ys[-1].data_ptr(), len(xs),
+        k.ctypes.data, k.shape[0], k.shape[1], b, h, w, c, oh, ow, up, down, pad0,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "upfirdn2d kernel")
     upfirdn2d_cuda.launches += 1
-    return y
+    return ys
+
+
+def upfirdn2d_cuda(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
+                   pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Launch the hand-written kernel. Takes a CUDA tensor (B, C, H, W) in
+    channels_last memory, float32 or bfloat16, C a multiple of 4, up and down in
+    {1, 2} and an FIR of at most 4x4; raises on anything else. Its ``launches``
+    counts the launches of this function and of :func:`upfirdn2d_pair_cuda`."""
+    return _launch([x], kernel, up, down, pad)[0]
 
 
 upfirdn2d_cuda.launches = 0
+
+
+def upfirdn2d_pair_cuda(x0: torch.Tensor, x1: torch.Tensor, kernel: Kernel, up: int = 1,
+                        down: int = 1, pad: Tuple[int, int] = (0, 0)):
+    """:func:`upfirdn2d_cuda` on two tensors of the same shape, in one launch."""
+    return tuple(_launch([x0, x1], kernel, up, down, pad))
+
+
+def upfirdn2d_pair_plain(x0: torch.Tensor, x1: torch.Tensor, kernel: Kernel, up: int = 1,
+                         down: int = 1, pad: Tuple[int, int] = (0, 0)):
+    """The plain version of :func:`upfirdn2d_pair`: two plain calls."""
+    return (upfirdn2d_plain(x0, kernel, up, down, pad),
+            upfirdn2d_plain(x1, kernel, up, down, pad))
 
 
 def upfirdn2d(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
@@ -118,24 +145,54 @@ def upfirdn2d(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
     raise ValueError(f"upfirdn2d: unsupported device {x.device}")
 
 
+def upfirdn2d_pair(x0: torch.Tensor, x1: torch.Tensor, kernel: Kernel, up: int = 1,
+                   down: int = 1, pad: Tuple[int, int] = (0, 0)):
+    """upfirdn2d of two tensors of the same shape (a res-block's h and skip x)."""
+    if x0.device.type == "cuda":
+        return upfirdn2d_pair_cuda(x0, x1, kernel, up, down, pad)
+    if x0.device.type == "cpu":
+        return upfirdn2d_pair_plain(x0, x1, kernel, up, down, pad)
+    raise ValueError(f"upfirdn2d_pair: unsupported device {x0.device}")
+
+
+def _upsample_args(k: Kernel, factor: int, gain: float):
+    assert isinstance(factor, int) and factor >= 1
+    k = setup_kernel([1.0] * factor if k is None else k) * (gain * (factor**2))
+    p = k.shape[0] - factor
+    return k, dict(up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
+
+
+def _downsample_args(k: Kernel, factor: int, gain: float):
+    assert isinstance(factor, int) and factor >= 1
+    k = setup_kernel([1.0] * factor if k is None else k) * gain
+    p = k.shape[0] - factor
+    return k, dict(down=factor, pad=((p + 1) // 2, p // 2))
+
+
 def upsample_2d(x: torch.Tensor, k: Kernel = None, factor: int = 2, gain: float = 1.0):
     """FIR upsample by `factor` (JAX ``upsample_2d``)."""
-    assert isinstance(factor, int) and factor >= 1
-    if k is None:
-        k = [1.0] * factor
-    k = setup_kernel(k) * (gain * (factor**2))
-    p = k.shape[0] - factor
-    return upfirdn2d(x, k, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
+    k, kw = _upsample_args(k, factor, gain)
+    return upfirdn2d(x, k, **kw)
 
 
 def downsample_2d(x: torch.Tensor, k: Kernel = None, factor: int = 2, gain: float = 1.0):
     """FIR downsample by `factor` (JAX ``downsample_2d``)."""
-    assert isinstance(factor, int) and factor >= 1
-    if k is None:
-        k = [1.0] * factor
-    k = setup_kernel(k) * gain
-    p = k.shape[0] - factor
-    return upfirdn2d(x, k, down=factor, pad=((p + 1) // 2, p // 2))
+    k, kw = _downsample_args(k, factor, gain)
+    return upfirdn2d(x, k, **kw)
+
+
+def upsample_2d_pair(x0: torch.Tensor, x1: torch.Tensor, k: Kernel = None, factor: int = 2,
+                     gain: float = 1.0):
+    """:func:`upsample_2d` of two tensors of the same shape, one kernel launch."""
+    k, kw = _upsample_args(k, factor, gain)
+    return upfirdn2d_pair(x0, x1, k, **kw)
+
+
+def downsample_2d_pair(x0: torch.Tensor, x1: torch.Tensor, k: Kernel = None, factor: int = 2,
+                       gain: float = 1.0):
+    """:func:`downsample_2d` of two tensors of the same shape, one kernel launch."""
+    k, kw = _downsample_args(k, factor, gain)
+    return upfirdn2d_pair(x0, x1, k, **kw)
 
 
 def naive_upsample_2d(x: torch.Tensor, factor: int = 2):

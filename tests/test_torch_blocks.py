@@ -106,6 +106,28 @@ def test_resnet_block_biggan(in_ch, out_ch, up, down, temb):
     _run(jmod, pmod, *inputs)
 
 
+@pytest.mark.parametrize("up,down", [(False, False), (True, False), (False, True)])
+def test_resnet_block_biggan_bf16(up, down):
+    """bfloat16 block with the temb bias fused into GroupNorm_1 (added in
+    float32, where flax adds in bf16 and rounds): within 5e-2 of max|out|, the
+    NCSN++ bf16 bound (both round every layer's output, at different places)."""
+    x, temb = _nhwc((2, 8, 6, 16), 8), _nhwc((2, 24), 9)
+    jmod = jb.ResnetBlockBigGANpp(act=jax.nn.silu, in_ch=16, out_ch=16, up=up, down=down,
+                                  fir=True, init_scale=1.0, temb_dim=24, dtype=jnp.bfloat16)
+    pmod = pb.ResnetBlockBigGANpp(16, 16, up=up, down=down, fir=True, init_scale=1.0,
+                                  temb_dim=24, dtype=torch.bfloat16)
+    variables = jmod.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(temb))
+    ref = np.asarray(jmod.apply(variables, jnp.asarray(x), jnp.asarray(temb))).astype(np.float32)
+    pmod.load_state_dict(convert.state_dict_from_jax(jax.tree.map(np.asarray,
+                                                                  variables["params"])))
+    with torch.no_grad():
+        got = pmod(_port_in(x).to(torch.bfloat16), _port_in(temb))
+    assert got.dtype == torch.bfloat16
+    got = _port_out(got)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 5e-2 * np.abs(ref).max()
+
+
 def test_init_rules():
     """DDPM init: fan_avg uniform with limit sqrt(3 s / fan_avg); scale 0 -> 1e-10."""
     conv = pb.Conv3x3(16, 32, init_scale=1.0)

@@ -6,7 +6,8 @@ They need an NVIDIA GPU with nvcc and skip elsewhere. On the card:
 
 Each kernel is held against its plain PyTorch version on the same inputs, at
 the small test config's shapes plus awkward ones (C = 4, odd sizes, negative
-padding); chip_smoke.py does the same at the full-width shapes.
+padding, a pre-bias, pairs); chip_smoke.py does the same at the full-width
+shapes.
 Tolerances, relative to max|plain|: float32 2e-5 (sums in another order),
 bfloat16 2^-7 (one bf16 rounding step).
 """
@@ -60,20 +61,44 @@ def test_upfirdn2d_kernel_matches_plain(dev, dtype, shape, up, down, pad):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,silu", [((2, 16, 64, 64), True), ((2, 48, 33, 7), True),
-                                        ((1, 384, 16, 16), True), ((2, 32, 16, 16), False)])
-def test_group_norm_act_kernel_matches_plain(dev, dtype, shape, silu):
+@pytest.mark.parametrize("shape,up,down,pad", [
+    ((2, 128, 32, 48), 1, 2, (1, 1)),
+    ((2, 64, 16, 8), 2, 1, (2, 1)),
+    ((1, 12, 9, 11), 2, 1, (2, 1)),
+])
+def test_upfirdn2d_pair_kernel_matches_plain(dev, dtype, shape, up, down, pad):
+    x0, x1 = _input(shape, dtype, dev, seed=0), _input(shape, dtype, dev, seed=1)
+    k = ufd.setup_kernel([1, 3, 3, 1]) * (4.0 if up == 2 else 1.0)
+    before = ufd.upfirdn2d_cuda.launches
+    got = ufd.upfirdn2d_pair(x0, x1, k, up=up, down=down, pad=pad)
+    torch.cuda.synchronize()
+    assert ufd.upfirdn2d_cuda.launches == before + 1
+    for g, r in zip(got, ufd.upfirdn2d_pair_plain(x0, x1, k, up=up, down=down, pad=pad)):
+        _agree(g, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,silu,bias", [((2, 16, 64, 64), True, False),
+                                             ((2, 48, 33, 7), True, True),
+                                             ((1, 384, 16, 16), True, False),
+                                             ((2, 32, 16, 16), False, False),
+                                             ((4, 128, 128, 128), True, True),
+                                             ((4, 512, 4, 4), True, True)])
+def test_group_norm_act_kernel_matches_plain(dev, dtype, shape, silu, bias):
     x = _input(shape, dtype, dev) * 2.0 + 0.5
-    c = shape[1]
+    b, c = shape[:2]
     g = torch.Generator(device=dev).manual_seed(1)
     gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
     beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    pre_bias = torch.randn(b, c, generator=g, device=dev).to(dtype) if bias else None
     groups = gn.num_groups_for(c)
     before = gn.group_norm_act_cuda.launches
-    got = gn.group_norm_act(x, gamma, beta, groups, 1e-6, silu)
+    got = gn.group_norm_act(x, gamma, beta, groups, 1e-6, silu, pre_bias)
     torch.cuda.synchronize()
     assert gn.group_norm_act_cuda.launches == before + 1
-    _agree(got, gn.group_norm_act_plain(x, gamma, beta, groups, 1e-6, silu), dtype)
+    _agree(got, gn.group_norm_act_plain(x, gamma, beta, groups, 1e-6, silu, pre_bias), dtype)
+    again = gn.group_norm_act(x, gamma, beta, groups, 1e-6, silu, pre_bias)
+    assert torch.equal(got, again)  # a fixed summation order: bit for bit
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -88,3 +113,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         gn.group_norm_act(_input((1, 16, 4, 4), torch.float16, dev),
                           torch.ones(16, device=dev), torch.zeros(16, device=dev), 4)
+    with pytest.raises(ValueError, match="pre_bias"):
+        gn.group_norm_act(_input((2, 16, 4, 4), torch.float32, dev), torch.ones(16, device=dev),
+                          torch.zeros(16, device=dev), 4, pre_bias=torch.zeros(16, device=dev))
+    with pytest.raises(ValueError, match="one shape"):
+        ufd.upfirdn2d_pair(_input((1, 8, 8, 8), torch.float32, dev),
+                           _input((1, 8, 8, 6), torch.float32, dev),
+                           ufd.setup_kernel([1, 3, 3, 1]), down=2, pad=(1, 1))

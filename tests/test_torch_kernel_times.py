@@ -1,0 +1,116 @@
+"""The measurement helpers of sgmse_tpu_torch.kernel_times, on the CPU.
+
+- The library yardsticks that chip_smoke.py and kernel_times time beside the
+  kernels (depthwise F.conv2d / F.conv_transpose2d for upfirdn2d, F.group_norm
+  for group_norm_act) compute the same function as the plain versions, and
+  those agree with the JAX package's resampling. Tolerance: 1e-5 of max|ref|
+  (float32 sums in another order).
+- The dispatcher recorder sees every kernel call of a forward at the small test
+  config, with the pair launches and the temb pre-bias, and leaves the output
+  as it was.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sgmse_tpu.ops import upfirdn2d as jufd
+from sgmse_tpu_torch import kernel_times as kt
+from sgmse_tpu_torch.model import ScoreModel
+from sgmse_tpu_torch.models.blocks import AttnBlockpp, GroupNorm, ResnetBlockBigGANpp
+from sgmse_tpu_torch.ops import upfirdn2d as ufd
+
+CPU = torch.device("cpu")
+UP_TAPS = tuple(float(v) for v in (ufd.setup_kernel([1, 3, 3, 1]) * 4).ravel())
+DOWN_TAPS = tuple(float(v) for v in ufd.setup_kernel([1, 3, 3, 1]).ravel())
+
+
+def _close(got, ref, tol=1e-5):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("sig", [
+    ((2, 16, 8, 12), 1, 2, (1, 1), DOWN_TAPS, 1),
+    ((2, 16, 6, 10), 2, 1, (2, 1), UP_TAPS, 1),
+    ((1, 8, 8, 8), 1, 2, (1, 1), DOWN_TAPS, 2),
+    ((1, 8, 4, 6), 2, 1, (2, 1), UP_TAPS, 2),
+])
+def test_upfirdn2d_library_yardstick_matches_plain(sig):
+    shape, up, down, pad, _, n = sig
+    case = kt.make_case("upfirdn2d", sig, torch.float32, CPU, torch.Generator().manual_seed(0))
+    lib, ref = case["library"](), case["library_ref"]()
+    assert len(lib) == len(ref) == n
+    for got, want in zip(lib, ref):
+        _close(got, want)
+    oh, ow = ref[0].shape[2:]
+    assert (oh, ow) == ((shape[2] * up + sum(pad) - 4) // down + 1,
+                        (shape[3] * up + sum(pad) - 4) // down + 1)
+    assert case["bytes"] == n * (np.prod(shape) + shape[0] * shape[1] * oh * ow) * 4
+    assert case["ops"] == n * shape[0] * shape[1] * oh * ow * (16 // up**2) * 2
+    assert case["bound_by"] == "bytes" and case["bound_ms"] > 0
+
+
+def test_plain_resampling_is_the_jax_resampling():
+    """What the yardsticks are held to is the JAX package's upsample/downsample."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 6, 10, 16)).astype(np.float32)
+    for fn in ("upsample_2d", "downsample_2d"):
+        got = getattr(ufd, fn)(torch.from_numpy(x).permute(0, 3, 1, 2), [1, 3, 3, 1])
+        _close(got.permute(0, 2, 3, 1).numpy(), getattr(jufd, fn)(jnp.asarray(x), [1, 3, 3, 1]))
+
+
+@pytest.mark.parametrize("silu,bias", [(False, False), (True, True)])
+def test_group_norm_library_yardstick_matches_plain(silu, bias):
+    sig = ((2, 32, 8, 6), 8, 1e-6, silu, bias)
+    case = kt.make_case("group_norm_act", sig, torch.float32, CPU,
+                        torch.Generator().manual_seed(1))
+    _close(case["library"](), case["library_ref"]())
+    assert case["library_same_function"] == (not silu and not bias)
+    assert case["bytes"] == 2 * 2 * 32 * 48 * 4 + 2 * 32 * 4 + (2 * 32 * 4 if bias else 0)  # f32
+
+
+def test_recorder_sees_every_kernel_call_of_a_forward():
+    small = dict(nf=16, ch_mult=(1, 1, 2), num_res_blocks=1, attn_resolutions=(16,),
+                 image_size=64, init_scale=1.0)
+    score_model = ScoreModel("ncsnpp", "ouve", **small)
+    score_model.init_params(torch.Generator().manual_seed(0))
+    model = score_model.dnn.to(memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy((rng.standard_normal((2, 1, 64, 64))
+                              + 1j * rng.standard_normal((2, 1, 64, 64))).astype(np.complex64))
+            for _ in range(2))
+    t = torch.tensor([0.3, 0.7])
+    with torch.no_grad():
+        want = model(x, y, t)
+        with kt.routed(calls=[], plain=True) as calls:
+            got = model(x, y, t)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    counts = kt.per_forward(calls)
+    mods = list(model.modules())
+    resblocks = [m for m in mods if isinstance(m, ResnetBlockBigGANpp)]
+    n_levels = len(small["ch_mult"])
+    gn_calls = [s for (n, s), c in counts.items() for _ in range(c) if n == "group_norm_act"]
+    ufd_calls = [s for (n, s), c in counts.items() for _ in range(c) if n == "upfirdn2d"]
+    assert len(gn_calls) == sum(isinstance(m, GroupNorm) for m in mods)
+    assert sum(s[4] for s in gn_calls) == len(resblocks)  # one temb pre-bias per block
+    assert sum(not s[3] for s in gn_calls) == sum(isinstance(m, AttnBlockpp) for m in mods)
+    assert sum(s[-1] == 2 for s in ufd_calls) == sum(m.up or m.down for m in resblocks)
+    assert sum(s[-1] == 1 for s in ufd_calls) == 2 * (n_levels - 1)  # the two pyramids
+
+
+def test_per_nfe_sums_each_signature_times_its_calls():
+    rows = [dict(name="group_norm_act", per_forward=3, ms=1.0, plain_ms=2.0, bound_ms=0.5,
+                 library_ms=4.0, bytes=10, ops=1),
+            dict(name="group_norm_act", per_forward=2, ms=0.5, plain_ms=1.0, bound_ms=0.25,
+                 library_ms=None, bytes=10, ops=1),
+            dict(name="upfirdn2d", per_forward=1, ms=0.1, plain_ms=0.2, bound_ms=0.05,
+                 library_ms=0.3, bytes=1, ops=10**9)]
+    sums = kt.per_nfe(rows)
+    gn = sums["group_norm_act"]
+    assert gn["launches_per_nfe"] == 5 and gn["ms"] == 4.0 and gn["plain_ms"] == 8.0
+    assert gn["bound_ms"] == 2.0 and gn["library_ms"] is None and gn["bound_by"] == "bytes"
+    up = sums["upfirdn2d"]
+    assert up["library_ms"] == 0.3 and up["bound_by"] == "operations"

@@ -77,9 +77,19 @@ def test_enhance_entry_point_end_to_end(tmp_path):
         "--test_dir", str(tmp_path / "noisy"), "--enhanced_dir", str(tmp_path / "out"),
         "--weights", str(tmp_path / "w.npz"), "--nf", "16", "--ch_mult", "1", "1", "2",
         "--num_res_blocks", "1", "--attn_resolutions", "16", "--N", "2", "--batch_size", "2",
-        "--timeit"])
+        "--timeit"], device="cpu")
     assert stats["files"] == 3 and stats["all_finite"] and stats["rtf"] > 0
     assert stats["nfe"] == 2 * 4 and stats["warmup_nfe"] == 2 * 2  # two buckets, N=2, ald
     for name, n in lengths.items():
         out, sr = read_wav(tmp_path / "out" / name)
         assert sr == 16000 and out.shape == (1, n) and np.isfinite(out).all()
+
+
+def test_enhance_entry_point_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
+    """Without ``device`` the entry point runs on the card; with none present it
+    raises instead of enhancing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        enhance.main(["--test_dir", str(tmp_path), "--enhanced_dir", str(tmp_path / "out"),
+                      "--weights", str(tmp_path / "w.npz")])
+    assert not (tmp_path / "out").exists()

@@ -12,8 +12,8 @@ def _kernel(name, ts, dur):
 def test_breakdown_merges_intervals_and_sorts_kinds():
     events = [
         {"cat": "cpu_op", "name": "aten::conv2d", "ts": 0.0, "dur": 500.0},
-        _kernel("void (anonymous namespace)::gn_apply_kernel<__nv_bfloat16>", 0.0, 100.0),
-        _kernel("void (anonymous namespace)::upfirdn2d_kernel<float>", 50.0, 100.0),
+        _kernel("void (anonymous namespace)::gn_act_kernel<__nv_bfloat16>", 0.0, 100.0),
+        _kernel("void (anonymous namespace)::upfirdn2d_tile_kernel<float, 1, 2>", 50.0, 100.0),
         _kernel("sm90_xmma_fprop_implicit_gemm_bf16bf16", 300.0, 300.0),
         _kernel("void at::native::vectorized_elementwise_kernel<8, add>", 800.0, 200.0),
     ]

@@ -75,6 +75,21 @@ def test_resampling_matches_jax(rng, fn, shape, out):
     _close(got, getattr(jufd, fn)(jnp.asarray(x), [1, 3, 3, 1], factor=2))
 
 
+@pytest.mark.parametrize("fn", ["upsample_2d", "downsample_2d"])
+def test_pair_matches_two_jax_calls(rng, fn):
+    """upfirdn2d_pair's plain version (the res-block's h and skip x in one call)
+    against two calls of the JAX resampling."""
+    x0 = rng.standard_normal((2, 8, 12, 16)).astype(np.float32)
+    x1 = rng.standard_normal((2, 8, 12, 16)).astype(np.float32)
+    got = getattr(ufd, fn + "_pair")(_to_port(x0), _to_port(x1), [1, 3, 3, 1], factor=2)
+    assert len(got) == 2
+    for g, x in zip(got, (x0, x1)):
+        _close(_from_port(g), getattr(jufd, fn)(jnp.asarray(x), [1, 3, 3, 1], factor=2))
+    k = ufd.setup_kernel([1, 3, 3, 1])
+    direct = ufd.upfirdn2d_pair(_to_port(x0), _to_port(x1), k, down=2, pad=(1, 1))
+    _close(_from_port(direct[1]), jufd.upfirdn2d(jnp.asarray(x1), k, down=2, pad=(1, 1)))
+
+
 def test_bf16_input_keeps_dtype_and_layout(rng):
     x = torch.from_numpy(rng.standard_normal((1, 8, 8, 4)).astype(np.float32))
     x = x.to(torch.bfloat16).float().numpy()  # a bf16-representable input
@@ -104,7 +119,11 @@ def test_cpu_dispatch_never_launches_and_kernel_refuses_cpu(rng):
     before = ufd.upfirdn2d_cuda.launches
     ufd.upsample_2d(x, [1, 3, 3, 1])
     assert ufd.upfirdn2d_cuda.launches == before
+    ufd.upsample_2d_pair(x, x, [1, 3, 3, 1])
+    assert ufd.upfirdn2d_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         ufd.upfirdn2d_cuda(x, FIR, up=2, pad=(2, 1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ufd.upfirdn2d_pair_cuda(x, x, FIR, up=2, pad=(2, 1))
     with pytest.raises(ValueError, match="unsupported device"):
         ufd.upfirdn2d(x.to("meta"), FIR)
