@@ -10,29 +10,44 @@ passes them all prints the final ``{"ok": true, ...}`` line:
 
 1. card identity (``nvidia-smi`` name and power limit); no CUDA -> fail;
 2. build the hand-written kernels from ``sgmse_tpu_torch/csrc``;
-3. hold each kernel against its plain PyTorch version at every call signature
-   the full-width NCSN++ gives it (B=4, F=T=256; group_norm_act with and
-   without its pre-bias, upfirdn2d single and paired), in float32 and
-   bfloat16; check that group_norm_act repeats bit for bit; check each library
-   yardstick against the plain version of the function it computes; then time
-   kernel, plain and library in bfloat16 as device time (CUDA graphs of 25
-   back-to-back calls, ``sgmse_tpu_torch.kernel_times``) beside each call's
-   byte/operation bound;
-4. full-width forward (65.59M params, seeded weights) through the kernels and
-   through the plain versions: relative error, and the launch counts per
-   forward (24 upfirdn2d, 109 group_norm_act);
-5. the main path through the entry point ``sgmse_tpu_torch.enhance.main`` on
-   four 2.04 s wavs (PC N=30, ald corrector, bf16), with the launch counts of
-   that run; then the same path on a short input through the kernels and
-   through the plain versions, which must agree.
+3. for the full-width flagship NCSN++ (B=4, F=T=256; ``ncsnpp_v2`` makes the
+   same calls) and the full-width ``ncsnpp_48k`` (F=768, T=256): hold each
+   kernel against its plain PyTorch version at every call signature the
+   network gives it (group_norm_act with and without its pre-bias, upfirdn2d
+   single and paired), in float32 and bfloat16; check that group_norm_act
+   repeats bit for bit; check each library yardstick against the plain
+   version of the function it computes; then time kernel, plain and library
+   in bfloat16 as device time (CUDA graphs of 25 back-to-back calls,
+   ``sgmse_tpu_torch.kernel_times``) beside each call's byte/operation bound;
+4. the same two networks' full forward (seeded weights) through the kernels
+   and through the plain versions, float32: relative error, and the launch
+   counts per forward (flagship 24 upfirdn2d and 109 group_norm_act; 48 kHz
+   12 and 100);
+5. the flagship main path through the entry point ``sgmse_tpu_torch.enhance``
+   on four 2.04-s wavs (PC N=30, ald corrector, bf16), with the launch counts
+   of that run; then the same path on a short input through the kernels and
+   through the plain versions, which must agree;
+6. the Schroedinger-bridge path through the entry point with ``--config``
+   (``ncsnpp_v2`` + SBVE, data prediction, the flagship's weights; bf16, four
+   2.04-s wavs, ``--N 30`` which the bridge ignores: 50 NFE); then its ``sde``
+   variant on a short input, kernels against plain;
+7. the 48 kHz path through the entry point with ``--config`` (``ncsnpp_48k``
+   with the 48 kHz STFT and SDE constants; four 2.04-s 48 kHz wavs, F=768,
+   PC N=30 + ald, bf16);
+8. the remaining samplers on a short input with the flagship's weights,
+   float32, kernels against plain: the probability-flow ODE by rk4 (N=4) and
+   by rk45 (``max_steps`` bounded: random weights make the ODE stiff),
+   euler_maruyama + langevin, and ``--chunk_seconds`` on a 5-s wav.
 
-Details go to ``chiprun_out/chip_smoke.json``.
+Each entry-point path is driven with the launch counters set to 0 just before
+it and read just after. Details go to ``chiprun_out/chip_smoke.json``.
 """
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -40,7 +55,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 B = 4
-WAV_LEN = 32640  # 2.04 s at 16 kHz: 256 STFT frames at hop 128
+WAV_SECONDS = 2.04  # 256 STFT frames at hop 128 (16 kHz) and at hop 384 (48 kHz)
 SEED = 0
 # Tolerances, relative to max|plain| of each comparison.
 TOL = {
@@ -54,7 +69,17 @@ TOL = {
 }
 FORWARD_TOL = 1e-3     # full f32 forward, kernels vs plain, relative to max|plain|
 ENHANCE_TOL = 1e-3     # short f32 enhance, kernels vs plain, relative to max|plain|
-PER_FORWARD = {"upfirdn2d": 24, "group_norm_act": 109}
+# Per network evaluation: launches, group_norm_act with/without SiLU, with the pre-bias,
+# parameters. The 48 kHz net keeps the middle block's attention, whose norm has no SiLU.
+NETS = {
+    "ncsnpp": dict(launches={"upfirdn2d": 24, "group_norm_act": 109}, silu_split=[105, 4],
+                   pre_bias=49, params=65_590_822),
+    "ncsnpp_48k": dict(launches={"upfirdn2d": 12, "group_norm_act": 100}, silu_split=[99, 1],
+                       pre_bias=49, params=64_739_854),
+}
+CONFIG_48K = dict(n_fft=1534, hop_length=384, spec_factor=0.065, spec_abs_exponent=0.667,
+                  sigma_min=0.1, sigma_max=1.0, theta=2.0, sr=48000)
+RK45_MAX_STEPS = 4
 REPLACES = {
     "upfirdn2d": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
     "group_norm_act": ("sgmse_tpu_torch/csrc/group_norm_act.cu",
@@ -111,7 +136,7 @@ def rel_check(what, got, ref, tol_rel):
     return err, scale
 
 
-def check_kernels(counts, dev):
+def check_kernels(counts, dev, backbone):
     """Phase 3: every recorded signature, kernel vs plain in float32 and
     bfloat16, bit-for-bit repeats of group_norm_act, each library yardstick vs
     the plain version of its function; bf16 device times and bounds."""
@@ -130,8 +155,9 @@ def check_kernels(counts, dev):
             err, scale = rel_check(f"{name} {case['sig']} {dt}", got, ref, tol)
             if name == "group_norm_act" and not torch.equal(got, case["kernel"]()):
                 raise AssertionError(f"{name} {case['sig']} {dt}: two runs differ")
-            row = dict(name=name, sig=case["sig"], dtype=dt, per_forward=per_forward,
-                       max_abs_err=err, max_abs_ref=scale, tol=tol * scale)
+            row = dict(backbone=backbone, name=name, sig=case["sig"], dtype=dt,
+                       per_forward=per_forward, max_abs_err=err, max_abs_ref=scale,
+                       tol=tol * scale)
             if "library" in case:
                 row["library_err"], _ = rel_check(f"{name} library {case['sig']} {dt}",
                                                   case["library"](), case["library_ref"](), tol)
@@ -145,34 +171,148 @@ def check_kernels(counts, dev):
     return rows
 
 
-def summarize(rows, launches):
+def network_checks(backbone, dev, report):
+    """Phases 3 and 4 for one full-width backbone: kernel checks and timings at
+    its call signatures, then its forward through the kernels against the
+    plain versions. Returns (model, kernel rows)."""
+    import torch
     from sgmse_tpu_torch import kernel_times as kt
 
-    sums = kt.per_nfe([r for r in rows if "ms" in r])
+    net = NETS[backbone]
+    model = kt.full_model(dev, backbone=backbone)
+    n_params = sum(p.numel() for p in model.parameters())
+    x, y, t = kt.network_inputs(dev, kt.BINS[backbone])
+    with torch.inference_mode():
+        with kt.routed(calls=[], plain=True) as calls:
+            out_plain = model.dnn(x, y, t)
+    counts = kt.per_forward(calls)
+    rows = check_kernels(counts, dev, backbone)
+    n_sigs = {k: sum(1 for n, _ in counts if n == k) for k in net["launches"]}
+    print(f"{backbone} kernel checks: {len(rows)} passed over {n_sigs} call signatures (f32, "
+          f"bf16; group_norm_act repeats bit for bit; library yardsticks agree), "
+          f"tolerances {TOL}")
+    for r in rows:
+        if "ms" in r:
+            lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"  {r['name']:15s} x{r['per_forward']} {r['sig']}: bf16 device "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library {lib}, "
+                  f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+
+    gn_sigs = [s for n, s in calls if n == "group_norm_act"]
+    silu_split = [sum(1 for s in gn_sigs if s[3] == flag) for flag in (True, False)]
+    with_bias = sum(1 for s in gn_sigs if s[4])
+    reset_counters()
+    with torch.inference_mode():
+        out_kernel = model.dnn(x, y, t)
+    torch.cuda.synchronize()
+    moved = counters()
+    rel = ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item()
+    print(f"{backbone} full forward: {n_params} params, B={B} F={x.shape[2]} T={x.shape[3]} "
+          f"f32, kernels vs plain rel err {rel:.3e} (bound {FORWARD_TOL}); launches {moved}, "
+          f"group_norm_act with/without SiLU {silu_split}, with the temb pre-bias {with_bias}")
+    if n_params != net["params"]:
+        raise AssertionError(f"{backbone}: expected {net['params']} params, got {n_params}")
+    if not (torch.isfinite(out_kernel).all() and rel <= FORWARD_TOL):
+        raise AssertionError(f"{backbone} forward: kernels vs plain rel err {rel} > {FORWARD_TOL}")
+    expected = (net["launches"], net["silu_split"], net["pre_bias"])
+    if (moved, silu_split, with_bias) != expected:
+        raise AssertionError(f"{backbone}: launches per forward {moved}, SiLU split "
+                             f"{silu_split}, pre-bias {with_bias}; expected {expected}")
+    report[f"forward_{backbone}"] = dict(params=n_params, rel_err=rel, launches=moved,
+                                         silu_split=silu_split, pre_bias=with_bias)
+    del out_plain, out_kernel
+    return model, rows
+
+
+def summarize(rows, launches_by_path):
+    from sgmse_tpu_torch import kernel_times as kt
+
+    sums = {bb: kt.per_nfe([r for r in rows if "ms" in r and r["backbone"] == bb])
+            for bb in NETS}
     out = []
-    for name in PER_FORWARD:
+    for name in REPLACES:
         mine = [r for r in rows if r["name"] == name]
         source, replaces = REPLACES[name]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=sum(path[name] for path in launches_by_path.values()),
+            launches_by_path={p: path[name] for p, path in launches_by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine if r["dtype"] == "float32"),
             max_abs_err_bf16=max(r["max_abs_err"] for r in mine if r["dtype"] == "bfloat16"),
-            **sums[name]))  # per network evaluation, from the bf16 device times
+            # per network evaluation of the flagship, from the bf16 device times
+            **sums["ncsnpp"][name],
+            per_nfe_48k={k: v for k, v in sums["ncsnpp_48k"][name].items()
+                         if k != "library_note"}))
     return out
 
 
-def write_wavs(dirname: Path):
+def write_wavs(dirname: Path, sr: int, seconds: float = WAV_SECONDS, n_files: int = B):
+    """Seeded noisy harmonic 'speech' with a syllable-rate envelope."""
     from sgmse_tpu_torch.data.wav import write_wav
 
     rng = np.random.default_rng(SEED)
-    n = np.arange(WAV_LEN) / 16000.0
-    for i in range(B):
+    length = round(seconds * sr)
+    n = np.arange(length) / sr
+    dirname.mkdir(parents=True, exist_ok=True)
+    for i in range(n_files):
         f0 = 110.0 + 40.0 * i
         speech = sum(np.sin(2 * np.pi * f0 * h * n) / h for h in range(1, 8))
-        speech *= 0.5 * (1.0 + np.sin(2 * np.pi * 3.0 * n))  # syllable-rate envelope
-        noisy = 0.2 * speech / np.abs(speech).max() + 0.05 * rng.standard_normal(WAV_LEN)
-        write_wav(dirname / f"utt{i}.wav", noisy.astype(np.float32), 16000)
+        speech *= 0.5 * (1.0 + np.sin(2 * np.pi * 3.0 * n))
+        noisy = 0.2 * speech / np.abs(speech).max() + 0.05 * rng.standard_normal(length)
+        write_wav(dirname / f"utt{i}.wav", noisy.astype(np.float32), sr)
+    return length
+
+
+def entry_point(tmp: Path, name: str, argv, sr: int, length: int, nfe: int, per_forward):
+    """Drive ``enhance.main`` on ``tmp/noisy_<sr>`` with the counters set to 0
+    just before and read just after; check the wavs, the NFE and the launches."""
+    import torch
+    from sgmse_tpu_torch import enhance
+    from sgmse_tpu_torch.data.wav import read_wav
+
+    out_dir = tmp / f"enhanced_{name}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    stats = enhance.main(["--test_dir", str(tmp / f"noisy_{sr}"), "--enhanced_dir", str(out_dir),
+                          *argv])
+    launches = counters()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    wavs = [read_wav(p) for p in sorted(out_dir.glob("*.wav"))]
+    evals = stats["nfe"] + stats["warmup_nfe"]
+    print(f"{name} path: {stats['audio_s_per_wall_s']:.3f} audio-s/wall-s (RTF "
+          f"{stats['rtf']:.4f}, wall {stats['wall_s']:.3f} s for {stats['audio_s']:.2f} audio-s), "
+          f"NFE {stats['nfe']} (+{stats['warmup_nfe']} warm-up), peak memory {peak_gib:.2f} GiB, "
+          f"launches {launches}")
+    if len(wavs) != B or any(w_sr != sr or w.shape != (1, length) or not np.isfinite(w).all()
+                             for w, w_sr in wavs):
+        raise AssertionError(f"{name}: expected {B} finite wavs of {length} samples at {sr} Hz, "
+                             f"got {[(w.shape, w_sr) for w, w_sr in wavs]}")
+    if not stats["all_finite"] or stats["nfe"] != nfe:
+        raise AssertionError(f"{name}: finite={stats['all_finite']}, NFE {stats['nfe']} != {nfe}")
+    expected = {k: v * evals for k, v in per_forward.items()}
+    if launches != expected:
+        raise AssertionError(f"{name} launches {launches}, expected {expected}")
+    return dict(stats, peak_gib=peak_gib, launches=launches), [w[0] for w, _ in wavs]
+
+
+def against_plain(what, run):
+    """``run()`` -> (waveform, nfe) through the kernels and through the plain
+    versions (same generator seed); they must agree within ENHANCE_TOL."""
+    from sgmse_tpu_torch import kernel_times as kt
+
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        got, nfe = run()
+        with kt.routed(plain=True):
+            ref, nfe_ref = run()
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    notes = sorted({str(w.message).split(";")[0] for w in warned})
+    print(f"{what}, kernels vs plain: rel err {rel:.3e} (bound {ENHANCE_TOL}), NFE {nfe}"
+          + (f" (plain {nfe_ref})" if nfe_ref != nfe else "") + "".join(f"; {n}" for n in notes))
+    if nfe != nfe_ref or not (np.isfinite(got).all() and rel <= ENHANCE_TOL):
+        raise AssertionError(f"{what}: rel err {rel} > {ENHANCE_TOL} or NFE {nfe} != {nfe_ref}")
+    return dict(rel_err=rel, nfe=nfe, warnings=notes)
 
 
 def main():
@@ -196,100 +336,105 @@ def main():
     (OUT_DIR / "build.log").write_text((so.parent / "build.log").read_text()
                                        if (so.parent / "build.log").exists() else "cached\n")
 
-    # --- 3. kernels vs plain at the main path's shapes ---------------------------------
-    from sgmse_tpu_torch import kernel_times as kt
+    # --- 3-4. kernels vs plain at every full-width signature; full forwards ----------------
+    from sgmse_tpu_torch import convert, kernel_times as kt
+    from sgmse_tpu_torch.model import ScoreModel
 
-    model = kt.full_model(dev)
-    n_params = sum(p.numel() for p in model.parameters())
-    x, y, t = kt.network_inputs(dev)
-    with torch.inference_mode():
-        with kt.routed(calls=[], plain=True) as calls:
-            out_plain = model.dnn(x, y, t)
-    counts = kt.per_forward(calls)
-    rows = check_kernels(counts, dev)
-    n_sigs = {k: sum(1 for n, _ in counts if n == k) for k in PER_FORWARD}
-    print(f"kernel checks: {len(rows)} passed over {n_sigs} call signatures (f32, bf16; "
-          f"group_norm_act repeats bit for bit; library yardsticks agree), tolerances {TOL}")
-    for r in rows:
-        if "ms" in r:
-            lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            print(f"  {r['name']:15s} x{r['per_forward']} {r['sig']}: bf16 device "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library {lib}, "
-                  f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
-    report["kernel_checks"] = rows
-
-    # --- 4. full-width forward, kernels vs plain -----------------------------------------
-    gn_sigs = [s for n, s in calls if n == "group_norm_act"]
-    silu_split = [sum(1 for s in gn_sigs if s[3] == flag) for flag in (True, False)]
-    with_bias = sum(1 for s in gn_sigs if s[4])
-    reset_counters()
-    with torch.inference_mode():
-        out_kernel = model.dnn(x, y, t)
-    torch.cuda.synchronize()
-    moved = counters()
-    rel = ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item()
-    print(f"full forward: {n_params} params, B={B} F=T={kt.F_BINS} f32, kernels vs plain "
-          f"rel err {rel:.3e} (bound {FORWARD_TOL}); launches {moved}, group_norm_act "
-          f"with/without SiLU {silu_split}, with the temb pre-bias {with_bias}")
-    if n_params != 65_590_822:
-        raise AssertionError(f"expected the 65.59M-param flagship, got {n_params}")
-    if not (torch.isfinite(out_kernel).all() and rel <= FORWARD_TOL):
-        raise AssertionError(f"full forward: kernels vs plain rel err {rel} > {FORWARD_TOL}")
-    if moved != PER_FORWARD or silu_split != [105, 4] or with_bias != 49:
-        raise AssertionError(f"launches per forward {moved}, SiLU split {silu_split}, "
-                             f"pre-bias {with_bias}; expected {PER_FORWARD}, [105, 4], 49")
-    report["forward"] = dict(params=n_params, rel_err=rel, launches=moved,
-                             silu_split=silu_split, pre_bias=with_bias)
-
-    # --- 5. main path through the entry point ------------------------------------------
-    from sgmse_tpu_torch import convert, enhance
-    from sgmse_tpu_torch.data.wav import read_wav
-
+    launches_by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        (tmp / "noisy").mkdir()
-        write_wavs(tmp / "noisy")
-        convert.save_npz(tmp / "weights.npz", convert.jax_tree_from_state_dict(
-            model.dnn.state_dict()))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counters()
-        stats = enhance.main([
-            "--test_dir", str(tmp / "noisy"), "--enhanced_dir", str(tmp / "enhanced"),
-            "--weights", str(tmp / "weights.npz"), "--batch_size", "4", "--N", "30",
-            "--corrector", "ald", "--snr", "0.5", "--precision", "bfloat16", "--timeit"])
-        launches = counters()
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        outs = sorted((tmp / "enhanced").glob("*.wav"))
-        wavs = [read_wav(p)[0][0] for p in outs]
-    evals = stats["nfe"] + stats["warmup_nfe"]
-    print(f"main path [{card}]: {stats['audio_s_per_wall_s']:.3f} audio-s/wall-s "
-          f"(RTF {stats['rtf']:.4f}, wall {stats['wall_s']:.3f} s for {stats['audio_s']:.2f} "
-          f"audio-s), NFE {stats['nfe']} (+{stats['warmup_nfe']} warm-up), peak memory "
-          f"{peak_gib:.2f} GiB, launches {launches}")
-    if len(wavs) != B or any(len(w) != WAV_LEN or not np.isfinite(w).all() for w in wavs):
-        raise AssertionError(f"expected {B} finite wavs of {WAV_LEN} samples, got "
-                             f"{[len(w) for w in wavs]}")
-    if not stats["all_finite"] or stats["nfe"] != 60:
-        raise AssertionError(f"main path: finite={stats['all_finite']}, NFE {stats['nfe']}")
-    expected = {k: v * evals for k, v in PER_FORWARD.items()}
-    if launches != expected:
-        raise AssertionError(f"main path launches {launches}, expected {expected}")
-    report["main_path"] = dict(stats, peak_gib=peak_gib, launches=launches)
+        model, rows = network_checks("ncsnpp", dev, report)
+        model_48k, rows_48k = network_checks("ncsnpp_48k", dev, report)
+        rows += rows_48k
+        report["kernel_checks"] = rows
+        weights, weights_48k = tmp / "weights.npz", tmp / "weights_48k.npz"
+        convert.save_npz(weights, convert.jax_tree_from_state_dict(model.dnn.state_dict()))
+        convert.save_npz(weights_48k,
+                         convert.jax_tree_from_state_dict(model_48k.dnn.state_dict()))
+        del model_48k  # off the card before the timed paths
+        torch.cuda.empty_cache()
+        len_16k, len_48k = write_wavs(tmp / "noisy_16000", 16000), write_wavs(tmp / "noisy_48000",
+                                                                              48000)
 
-    # The same path on a short input, kernels vs plain, float32.
-    short = np.asarray(wavs[0][:16000], np.float32)
-    kw = dict(N=5, corrector="ald", snr=0.5)
-    got = model.enhance(short, generator=torch.Generator(device=dev).manual_seed(1), **kw)
-    with kt.routed(plain=True):
-        ref = model.enhance(short, generator=torch.Generator(device=dev).manual_seed(1), **kw)
-    rel_e = float(np.abs(got - ref).max() / np.abs(ref).max())
-    print(f"short enhance, kernels vs plain: rel err {rel_e:.3e} (bound {ENHANCE_TOL})")
-    if not (np.isfinite(got).all() and rel_e <= ENHANCE_TOL):
-        raise AssertionError(f"short enhance: rel err {rel_e} > {ENHANCE_TOL}")
-    report["short_enhance_rel_err"] = rel_e
+        # --- 5. flagship main path through the entry point --------------------------------
+        report["main_path"], wavs = entry_point(
+            tmp, "main", ["--weights", str(weights), "--batch_size", "4", "--N", "30",
+                          "--corrector", "ald", "--snr", "0.5", "--precision", "bfloat16",
+                          "--timeit"], 16000, len_16k, 60, NETS["ncsnpp"]["launches"])
+        launches_by_path["main"] = report["main_path"]["launches"]
+        short = np.asarray(wavs[0][:16000], np.float32)
 
-    summary = summarize(rows, launches)
+        def seeded(seed):
+            return torch.Generator(device=dev).manual_seed(seed)
+
+        report["short_enhance"] = against_plain("short PC enhance", lambda: model.enhance(
+            short, generator=seeded(1), N=5, corrector="ald", snr=0.5, timeit=True)[:2])
+
+        # --- 6. Schroedinger-bridge path -----------------------------------------------------
+        sb_config = ScoreModel("ncsnpp_v2", "sbve", loss_type="data_prediction").config_dict()
+        (tmp / "sb.json").write_text(json.dumps(sb_config))
+        report["sb_path"], _ = entry_point(
+            tmp, "sb", ["--weights", str(weights), "--config", str(tmp / "sb.json"),
+                        "--batch_size", "4", "--N", "30", "--precision", "bfloat16", "--timeit"],
+            16000, len_16k, 50, NETS["ncsnpp"]["launches"])
+        launches_by_path["sb"] = report["sb_path"]["launches"]
+        sb_model = ScoreModel.from_config(sb_config)
+        sb_model.dnn.load_state_dict(model.dnn.state_dict())
+        sb_model = sb_model.to(dev, memory_format=torch.channels_last).eval()
+        report["sb_sde_short"] = against_plain("short SB sde enhance", lambda: sb_model.enhance(
+            short, generator=seeded(2), sampler_type="sde", pad_mode="reflection",
+            timeit=True)[:2])
+        del sb_model
+
+        # --- 7. 48 kHz path ---------------------------------------------------------------
+        config_48k = ScoreModel("ncsnpp_48k", "ouve", **CONFIG_48K).config_dict()
+        (tmp / "k48.json").write_text(json.dumps(config_48k))
+        spec_48k = ScoreModel.from_config(config_48k).spec
+        frames = 1 + len_48k // spec_48k.hop_length
+        if (spec_48k.num_freqs, frames) != (kt.BINS["ncsnpp_48k"], kt.T_FRAMES):
+            raise AssertionError(f"48 kHz input is F={spec_48k.num_freqs} T={frames}")
+        report["path_48k"], _ = entry_point(
+            tmp, "48k", ["--weights", str(weights_48k), "--config", str(tmp / "k48.json"),
+                         "--batch_size", "4", "--N", "30", "--corrector", "ald", "--snr", "0.5",
+                         "--precision", "bfloat16", "--timeit"],
+            48000, len_48k, 60, NETS["ncsnpp_48k"]["launches"])
+        report["path_48k"]["F"], report["path_48k"]["T"] = spec_48k.num_freqs, frames
+        launches_by_path["48k"] = report["path_48k"]["launches"]
+
+        # --- 8. the remaining samplers, short input, f32, kernels vs plain ----------------
+        samplers = {
+            "ode rk4 N=4": dict(sampler_type="ode", method="rk4", N=4),
+            f"ode rk45 max_steps={RK45_MAX_STEPS}": dict(sampler_type="ode", method="rk45",
+                                                         max_steps=RK45_MAX_STEPS),
+            "euler_maruyama + langevin N=5": dict(predictor="euler_maruyama",
+                                                  corrector="langevin", N=5),
+        }
+        report["samplers"] = {}
+        for i, (what, kw) in enumerate(samplers.items()):
+            report["samplers"][what] = against_plain(what, lambda: model.enhance(
+                short, generator=seeded(3 + i), timeit=True, **kw)[:2])
+        if report["samplers"]["ode rk4 N=4"]["nfe"] != 17:
+            raise AssertionError("rk4 with N=4 must make 17 evaluations")
+
+        from sgmse_tpu_torch import enhance
+        from sgmse_tpu_torch.data.wav import read_wav
+
+        long_dir = tmp / "long"
+        len_5s = write_wavs(long_dir / "noisy", 16000, seconds=5.0, n_files=1)
+        stats = enhance.main(["--test_dir", str(long_dir / "noisy"), "--enhanced_dir",
+                              str(long_dir / "out"), "--weights", str(weights), "--N", "5",
+                              "--chunk_seconds", "2", "--timeit"])
+        out, _ = read_wav(long_dir / "out" / "utt0.wav")
+        print(f"--chunk_seconds 2 on a 5-s wav: {stats['audio_s_per_wall_s']:.3f} audio-s/wall-s, "
+              f"NFE {stats['nfe']} (3 chunks of N=5 + ald), output {out.shape[1]} samples")
+        if out.shape != (1, len_5s) or not np.isfinite(out).all() or stats["nfe"] != 3 * 10:
+            raise AssertionError(f"--chunk_seconds: output {out.shape}, NFE {stats['nfe']}")
+        long_wav = read_wav(long_dir / "noisy" / "utt0.wav")[0][0]
+        report["chunked"] = dict(stats, enhance_long=against_plain(
+            "enhance_long of 5 s in 2-s chunks", lambda: model.enhance_long(
+                long_wav, chunk_seconds=2.0, generator=seeded(7), N=5, timeit=True)[:2]))
+
+    summary = summarize(rows, launches_by_path)
     report["kernels"] = summary
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": summary}))

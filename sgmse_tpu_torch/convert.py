@@ -93,12 +93,13 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     return unflatten_tree(flat)
 
 
-def params_from_jax(tree: Mapping, **config) -> Dict[str, torch.Tensor]:
-    """JAX ``variables["params"]`` of an NCSNpp built with ``config`` -> the
-    port's state_dict. Strict-loads it into ``NCSNpp(**config)`` first, so a
-    leaf left over, missing or of the wrong shape raises."""
-    from .models.ncsnpp import NCSNpp
+def params_from_jax(tree: Mapping, backbone: str = "ncsnpp", **config) -> Dict[str, torch.Tensor]:
+    """JAX ``variables["params"]`` of the ``backbone`` network built with
+    ``config`` -> the port's state_dict. Strict-loads it into the registry's
+    class for ``backbone`` first, so a leaf left over, missing or of the wrong
+    shape raises."""
+    from .models import BackboneRegistry
 
     sd = state_dict_from_jax(tree)
-    NCSNpp(**config).load_state_dict(sd, strict=True)
+    BackboneRegistry.get_by_name(backbone)(**config).load_state_dict(sd, strict=True)
     return sd

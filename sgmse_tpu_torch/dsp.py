@@ -128,21 +128,26 @@ def spec_back(spec: torch.Tensor, transform_type: str = "exponent", spec_factor:
 def pad_spec(spec: torch.Tensor, mode: str = "zero_pad", multiple: int = 64) -> torch.Tensor:
     """Pad the last (time-frame) axis to a multiple of `multiple`.
 
-    Modes: zero padding, reflection and replication of the T axis.
+    Modes: zero padding, reflection and replication of the T axis. Reflection
+    is numpy's ``reflect`` (the JAX package's ``jnp.pad``): a pad longer than
+    the spectrogram reflects again at each end, so it takes any T.
     """
-    num_pad = (-spec.shape[-1]) % multiple
+    t = spec.shape[-1]
+    num_pad = (-t) % multiple
     if num_pad == 0:
         return spec
-    torch_mode = {"zero_pad": "constant", "reflection": "reflect",
-                  "replication": "replicate"}.get(mode)
-    if torch_mode is None:
-        raise NotImplementedError(f"pad mode {mode} not implemented")
-    if torch_mode == "constant":
+    if mode == "zero_pad":
         return F.pad(spec, (0, num_pad))
-    # reflect/replicate take real (N, C, L) input: pad re and im separately.
-    flat = torch.view_as_real(spec.reshape(-1, spec.shape[-1]))  # (N, T, 2)
-    flat = F.pad(flat.permute(0, 2, 1), (0, num_pad), mode=torch_mode).permute(0, 2, 1)
-    return torch.view_as_complex(flat.contiguous()).reshape(*spec.shape[:-1], -1)
+    idx = torch.arange(t + num_pad, device=spec.device)
+    if mode == "reflection":
+        period = max(2 * (t - 1), 1)  # 0 1 .. t-1 .. 1 | 0 1 ..
+        idx = idx % period
+        idx = torch.where(idx < t, idx, period - idx)
+    elif mode == "replication":
+        idx = idx.clamp(max=t - 1)
+    else:
+        raise NotImplementedError(f"pad mode {mode} not implemented")
+    return spec.index_select(-1, idx)
 
 
 class SpecTransform:

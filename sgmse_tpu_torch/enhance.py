@@ -1,20 +1,34 @@
 """Enhancement entry point of the PyTorch port: enhance every wav in a directory.
 
     python -m sgmse_tpu_torch.enhance --test_dir noisy/ --enhanced_dir out/ \\
-        --weights model.npz [--nf 128 --ch_mult 1 1 2 2 2 2 2 ...] \\
-        [--N 30 --corrector ald --snr 0.5 --batch_size 4 --precision bfloat16 --timeit]
+        --weights model.npz [--config config.json | --nf 128 --ch_mult 1 1 2 2 2 2 2 ...] \\
+        [--sampler_type pc --N 30 --corrector ald --snr 0.5 --chunk_seconds S] \\
+        [--batch_size 4 --precision bfloat16 --timeit]
 
-Counterpart of ``cli/enhance.py`` for the ncsnpp + OUVE + PC path. Weights come
-from an ``.npz`` of the JAX parameter tree (``convert.save_npz``) plus the
-model-config flags, in place of an Orbax checkpoint. ``--batch_size`` groups
-utterances whose padded frame counts match and enhances each group in one
-batched sampler run.
+Counterpart of ``cli/enhance.py``. Weights come from an ``.npz`` of the JAX
+parameter tree (``convert.save_npz``), in place of an Orbax checkpoint. The
+model is the JAX ``ScoreModel.config_dict()`` given as ``--config`` (the
+``config.json`` of a JAX checkpoint: backbone, SDE, STFT constants,
+preconditioning), or, without it, the flagship ``ncsnpp`` + OUVE built from
+the model flags (which ``--config`` overrides, apart from ``--precision``).
+The backbone sets the sample rate and the pad mode (``utils.inference``).
+``--sampler_type`` follows the JAX CLI: ``pc`` or ``ode`` on OUVE; on SBVE the
+Schroedinger bridge, ``ode`` (``pc`` maps to it) or ``sde``, over the SDE's own
+N steps whatever ``--N`` says.
+
+``--batch_size`` groups utterances whose padded frame counts match and
+enhances each group in one batched sampler run. ``--chunk_seconds`` enhances
+each utterance alone, in overlapping chunks of that length
+(``ScoreModel.enhance_long``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import sys
 import time
+import warnings
 from glob import glob
 from os import makedirs
 from os.path import dirname, join
@@ -26,8 +40,7 @@ from . import convert
 from .data.wav import read_wav, resample, write_wav
 from .model import ScoreModel
 from .models.ncsnpp import NCSNpp
-
-TARGET_SR = 16000  # the ncsnpp backbone's sample rate; pad mode zero_pad
+from .utils.inference import target_sr_and_pad
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,34 +51,43 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Directory to write the enhanced wavs")
     parser.add_argument("--weights", type=str, required=True,
                         help=".npz of the JAX parameter tree (convert.save_npz)")
-    parser.add_argument("--corrector", type=str, choices=("ald", "none"), default="ald",
-                        help="Corrector of the PC sampler")
+    parser.add_argument("--config", type=str, default=None,
+                        help="JSON of the JAX ScoreModel.config_dict() (a JAX checkpoint's "
+                             "config.json); without it, the flagship from the model flags")
+    parser.add_argument("--sampler_type", type=str, default="pc",
+                        help="pc or ode (OUVE); ode or sde (SBVE, where pc means ode)")
+    parser.add_argument("--corrector", type=str, choices=("ald", "langevin", "none"),
+                        default="ald", help="Corrector of the PC sampler")
     parser.add_argument("--corrector_steps", type=int, default=1,
                         help="Number of corrector steps")
     parser.add_argument("--snr", type=float, default=0.5,
-                        help="SNR value for annealed Langevin dynamics")
+                        help="SNR value for (annealed) Langevin dynamics")
     parser.add_argument("--N", type=int, default=30, help="Number of reverse steps")
     parser.add_argument("--t_eps", type=float, default=0.03,
                         help="The minimum process time (0.03 by default)")
     parser.add_argument("--batch_size", type=int, default=1,
                         help="Utterances enhanced per sampler run (bucketed by length)")
+    parser.add_argument("--chunk_seconds", type=float, default=None,
+                        help="Enhance each file alone in overlapping chunks of this many "
+                             "seconds (overlap-add crossfade, bounded memory)")
     parser.add_argument("--seed", type=int, default=0, help="Sampling RNG seed")
     parser.add_argument("--timeit", action="store_true",
                         help="Print the run's real-time factor and audio-s/wall-s; every "
-                             "batch shape runs once, one step long, before the clock starts")
+                             "input shape runs once, one step long, before the clock starts")
     NCSNpp.add_argparse_args(parser)
+    parser.set_defaults(precision=None)  # float32, or the --config's
     return parser
 
 
-def _load_items(test_dir: str):
+def _load_items(test_dir: str, target_sr: int):
     files = sorted(glob(join(test_dir, "*.wav"))) + sorted(glob(join(test_dir, "**", "*.wav")))
     items = []
     for path in dict.fromkeys(files):
         name = path[len(test_dir):].lstrip("/")
         y, sr = read_wav(path)
         y = y[0]
-        if sr != TARGET_SR:
-            y = resample(y, sr, TARGET_SR)
+        if sr != target_sr:
+            y = resample(y, sr, target_sr)
         items.append((name, y))
     return items
 
@@ -83,6 +105,41 @@ def _chunks(items, batch_size: int, hop: int):
             for i in range(0, len(group), batch_size)]
 
 
+def build_model(args) -> ScoreModel:
+    """The model of ``--config`` (or of the flagship flags) with ``--weights``."""
+    if args.config is not None:
+        with open(args.config) as f:
+            cfg = json.load(f)
+        if args.precision is not None:
+            cfg["precision"] = args.precision
+    else:
+        cfg = dict(backbone="ncsnpp", sde="ouve", nf=args.nf, ch_mult=args.ch_mult,
+                   num_res_blocks=args.num_res_blocks, attn_resolutions=args.attn_resolutions,
+                   centered=args.centered, precision=args.precision or "float32")
+    cfg["t_eps"] = args.t_eps
+    model = ScoreModel.from_config(cfg)
+    model.dnn.load_state_dict(convert.state_dict_from_jax(convert.load_npz(args.weights)))
+    return model
+
+
+def _warm_up(model: ScoreModel, shapes, generator, sampler_kwargs) -> int:
+    """Run every input shape once, one step long, so that kernel builds, cuDNN
+    set-up and allocator growth happen before the clock starts. The
+    Schroedinger-bridge sampler runs ``sde.N`` steps whatever ``N`` says, so
+    the SDE itself is shortened; rk45 stops after one step. Returns the NFE."""
+    sde, nfe = model.sde, 0
+    model.sde = dataclasses.replace(sde, N=1)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="ODE sampler hit max_steps")
+            for shape in sorted(shapes):
+                nfe += model.enhance(np.zeros(shape, np.float32), generator=generator,
+                                     timeit=True, **{**sampler_kwargs, "N": 1, "max_steps": 1})[1]
+    finally:
+        model.sde = sde
+    return nfe
+
+
 def main(argv=None, device=None) -> dict:
     """Enhance every wav of ``--test_dir``. Runs on the card; ``device="cpu"``
     (not a command-line flag) runs the plain versions on the CPU, for tests."""
@@ -93,47 +150,48 @@ def main(argv=None, device=None) -> dict:
                                "torch.cuda.is_available() is false")
         device = "cuda"
     device = torch.device(device)
-    config = dict(nf=args.nf, ch_mult=args.ch_mult, num_res_blocks=args.num_res_blocks,
-                  attn_resolutions=args.attn_resolutions, centered=args.centered,
-                  precision=args.precision)
-    model = ScoreModel("ncsnpp", "ouve", t_eps=args.t_eps, **config)
-    model.dnn.load_state_dict(convert.params_from_jax(convert.load_npz(args.weights), **config))
-    model = model.to(device, memory_format=torch.channels_last).eval()
+    model = build_model(args).to(device, memory_format=torch.channels_last).eval()
+    target_sr, pad_mode = target_sr_and_pad(model.backbone)
 
-    items = _load_items(args.test_dir)
-    chunks = _chunks(items, args.batch_size, model.spec.hop_length)
-    sampler_kwargs = dict(N=args.N, corrector=args.corrector,
-                          corrector_steps=args.corrector_steps, snr=args.snr)
+    items = _load_items(args.test_dir, target_sr)
+    sampler_kwargs = dict(sampler_type=args.sampler_type, N=args.N, corrector=args.corrector,
+                          corrector_steps=args.corrector_steps, snr=args.snr, pad_mode=pad_mode)
     generator = torch.Generator(device=device).manual_seed(args.seed)
-
-    warm_nfe = 0
-    if args.timeit:
-        # Kernel build, cuDNN set-up and allocator growth happen outside the
-        # clock: one step at every batch shape the timed loop uses.
-        for batch, maxlen in sorted({(len(c), max(len(y) for _, y in c)) for c in chunks}):
-            model.enhance(np.zeros((batch, maxlen), np.float32), generator=generator,
-                          **{**sampler_kwargs, "N": 1})
-            warm_nfe += 1 if args.corrector == "none" else 1 + args.corrector_steps
+    if args.chunk_seconds is not None:
+        chunk_len = int(args.chunk_seconds * model.sr)
+        chunks = [[item] for item in items]
+        shapes = {(min(len(y), chunk_len),) for _, y in items}
+    else:
+        chunks = _chunks(items, args.batch_size, model.spec.hop_length)
+        shapes = {(len(c), max(len(y) for _, y in c)) for c in chunks}
+    warm_nfe = _warm_up(model, shapes, generator, sampler_kwargs) if args.timeit else 0
 
     total_audio_s, nfe_total, all_finite = 0.0, 0, True
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.time()
     for chunk in chunks:
-        maxlen = max(len(y) for _, y in chunk)
-        yb = np.stack([np.pad(y, (0, maxlen - len(y))) for _, y in chunk])
-        x_hat, nfe, _ = model.enhance(yb, generator=generator, timeit=True, **sampler_kwargs)
+        if args.chunk_seconds is not None:
+            x_hat, nfe, _ = model.enhance_long(chunk[0][1], chunk_seconds=args.chunk_seconds,
+                                               generator=generator, timeit=True,
+                                               **sampler_kwargs)
+            x_hat = x_hat[None]
+        else:
+            maxlen = max(len(y) for _, y in chunk)
+            yb = np.stack([np.pad(y, (0, maxlen - len(y))) for _, y in chunk])
+            x_hat, nfe, _ = model.enhance(yb, generator=generator, timeit=True, **sampler_kwargs)
         nfe_total += nfe
         all_finite = all_finite and bool(np.isfinite(x_hat).all())
         for (name, y), xh in zip(chunk, x_hat):
             out = join(args.enhanced_dir, name)
             makedirs(dirname(out), exist_ok=True)
-            write_wav(out, xh[:len(y)], TARGET_SR)
-            total_audio_s += len(y) / TARGET_SR
+            write_wav(out, xh[:len(y)], target_sr)
+            total_audio_s += len(y) / target_sr
             print(name)
     wall = time.time() - t0
     stats = dict(files=len(items), audio_s=total_audio_s, wall_s=wall, nfe=nfe_total,
-                 warmup_nfe=warm_nfe, all_finite=all_finite, device=str(device))
+                 warmup_nfe=warm_nfe, all_finite=all_finite, device=str(device),
+                 backbone=model.backbone, sde=model.sde_name, sample_rate=target_sr)
     if args.timeit and total_audio_s > 0:
         stats["rtf"] = wall / total_audio_s
         stats["audio_s_per_wall_s"] = total_audio_s / wall

@@ -1,11 +1,13 @@
 """Device time of the port's kernels at every shape of the full-width main path.
 
-    python -m sgmse_tpu_torch.kernel_times [--out FILE]
+    python -m sgmse_tpu_torch.kernel_times [--backbone ncsnpp_48k] [--out FILE]
     python sgmse_tpu_torch/kernel_times.py --root DIR [--out FILE]
 
-Records the calls that one evaluation of the full-width NCSN++ (seeded
-weights, B=4, F=T=256) makes to the two kernel dispatchers, then, for each
-distinct call signature, in bfloat16 (the main path's dtype), times:
+Records the calls that one evaluation of a full-width NCSN++ (seeded weights,
+B=4, T=256 frames: the flagship ``ncsnpp`` at F=256, which ``ncsnpp_v2``
+shares, or ``ncsnpp_48k`` at F=768) makes to the two kernel dispatchers,
+then, for each distinct call signature, in bfloat16 (the main path's dtype),
+times:
 
 - the kernel, its plain PyTorch version and the library yardstick (the one
   PyTorch call that computes the same function, where there is one): a CUDA
@@ -40,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 B, F_BINS, T_FRAMES = 4, 256, 256  # four 2.04-s utterances
+# Frequency bins of each backbone's full-width input: n_fft 510 at 16 kHz, 1534 at 48 kHz.
+BINS = {"ncsnpp": F_BINS, "ncsnpp_48k": 768}
 SEED = 0
 REPS = 25
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -101,19 +105,20 @@ def routed(calls=None, plain=False):
             ufd.upfirdn2d_pair = orig["pair"]
 
 
-def full_model(dev, precision="float32"):
-    """The default (full-width) ScoreModel with seeded weights. init_scale 1
-    instead of the DDPM 0 (1e-10), so that every layer contributes to the output."""
+def full_model(dev, precision="float32", backbone="ncsnpp"):
+    """The backbone's default (full-width) ScoreModel with seeded weights.
+    init_scale 1 instead of the DDPM 0 (1e-10), so that every layer contributes
+    to the output."""
     from sgmse_tpu_torch.model import ScoreModel
 
-    model = ScoreModel("ncsnpp", "ouve", init_scale=1.0, precision=precision)
+    model = ScoreModel(backbone, "ouve", init_scale=1.0, precision=precision)
     model.init_params(torch.Generator().manual_seed(SEED))
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 
-def network_inputs(dev):
+def network_inputs(dev, f_bins=F_BINS):
     rng = np.random.default_rng(SEED)
-    shape = (B, 1, F_BINS, T_FRAMES)
+    shape = (B, 1, f_bins, T_FRAMES)
     cplx = lambda: (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * 0.3
     x, y = cplx().astype(np.complex64), cplx().astype(np.complex64)
     t = rng.uniform(0.03, 1.0, (B,)).astype(np.float32)
@@ -236,10 +241,10 @@ def time_case(case) -> dict:
     return row
 
 
-def record_calls(dev):
+def record_calls(dev, backbone="ncsnpp"):
     """The kernel-dispatcher calls of one full-width evaluation (plain route)."""
-    model = full_model(dev)
-    x, y, t = network_inputs(dev)
+    model = full_model(dev, backbone=backbone)
+    x, y, t = network_inputs(dev, BINS[backbone])
     with torch.inference_mode(), routed(calls=[], plain=True) as calls:
         out = model.dnn(x, y, t)
     return calls, out, model
@@ -274,6 +279,8 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", type=str, default=None,
                         help="checkout whose sgmse_tpu_torch to time (default: this one)")
+    parser.add_argument("--backbone", choices=sorted(BINS), default="ncsnpp",
+                        help="whose full-width call signatures to time")
     parser.add_argument("--out", type=str, default=None, help="also write the JSON here")
     args = parser.parse_args(argv)
     if args.root:
@@ -282,13 +289,14 @@ def main(argv=None) -> dict:
         raise RuntimeError("kernel_times runs on the card only")
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    calls, _, model = record_calls(dev)
+    calls, _, model = record_calls(dev, args.backbone)
     del model
     counts = per_forward(calls)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = [dict(time_case(make_case(*key, torch.bfloat16, dev, gen)), per_forward=n)
             for key, n in counts.items()]
-    result = dict(card=card(), root=args.root or ".", per_nfe=per_nfe(rows), shapes=rows)
+    result = dict(card=card(), root=args.root or ".", backbone=args.backbone,
+                  per_nfe=per_nfe(rows), shapes=rows)
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -1,6 +1,15 @@
-"""ScoreModel: owns backbone + SDE + DSP transform; the forward contract and the
-one-call ``enhance`` pipeline. Counterpart of the main-path slice of
-``sgmse_tpu/model.py`` (ncsnpp backbone, OUVE SDE, PC sampler).
+"""ScoreModel: owns backbone + SDE + DSP transform; the forward contracts, the
+preconditioning and the one-call ``enhance`` pipeline. Counterpart of
+``sgmse_tpu/model.py`` for inference (training, its losses and
+``enhance_eval`` are not ported).
+
+Forward contracts, as in the JAX package:
+
+- ``ncsnpp`` and ``ncsnpp_48k``: the legacy ``score = -dnn(x_t, y, t)``;
+- ``ncsnpp_v2``: EDM-style preconditioning, ``c_in``/``c_out``/``c_skip`` and
+  an optional ``network_scaling``. The output is a score for ``score_matching``
+  and ``denoiser``, and the clean state for ``data_prediction`` (what the
+  Schroedinger-bridge sampler calls).
 
 Unlike the JAX package, parameters live in the module (``self.dnn``), as
 PyTorch has it; ``init_params(generator)`` draws them from an explicit
@@ -10,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 import time
 from typing import Any, Dict, Optional
 
@@ -24,12 +34,27 @@ from .sdes import SDERegistry
 
 _SPEC_KEYS = ("n_fft", "hop_length", "window", "transform_type", "spec_factor",
               "spec_abs_exponent", "num_frames")
+# Training-only settings of a JAX checkpoint's config: kept for config_dict, unused.
+_TRAINING_DEFAULTS = dict(lr=1e-4, ema_decay=0.999, num_eval_files=20,
+                          loss_weighting="sigma^2", l1_weight=0.001, pesq_weight=0.0)
+PORTED = {"backbone": ("ncsnpp", "ncsnpp_v2", "ncsnpp_48k"), "sde": ("ouve", "sbve")}
+
+
+def _bcast(c):
+    return c[:, None, None, None]
 
 
 def _accepted(cls) -> set:
+    """The keyword arguments ``cls`` declares, its base classes' included."""
     if dataclasses.is_dataclass(cls):
         return {f.name for f in dataclasses.fields(cls)}
-    return set(inspect.signature(cls.__init__).parameters) - {"self"}
+    names = set()
+    for c in cls.__mro__[:cls.__mro__.index(nn.Module)]:
+        init = vars(c).get("__init__")
+        if init is not None:
+            names |= {p.name for p in inspect.signature(init).parameters.values()
+                      if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
+    return names - {"self"}
 
 
 def _filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
@@ -44,16 +69,20 @@ class ScoreModel(nn.Module):
 
     Construction mirrors the JAX ``ScoreModel``: backbone/sde names select
     registry classes, and the remaining kwargs are routed to whichever of the
-    backbone, the SDE and the STFT transform declares them (training-only
-    kwargs are accepted and ignored).
+    backbone, the SDE and the STFT transform declares them. Training-only
+    kwargs are accepted, kept for :meth:`config_dict` and otherwise ignored.
     """
 
     def __init__(self, backbone: str = "ncsnpp", sde: str = "ouve", t_eps: float = 0.03,
-                 sr: int = 16000, spec: Optional[SpecTransform] = None, **kwargs):
+                 loss_type: str = "score_matching", network_scaling: Optional[str] = None,
+                 c_in: str = "1", c_out: str = "1", c_skip: str = "0",
+                 sigma_data: float = 0.1, sr: int = 16000, spec: Optional[SpecTransform] = None,
+                 **kwargs):
         super().__init__()
-        if backbone != "ncsnpp" or sde != "ouve":
+        if backbone not in PORTED["backbone"] or sde not in PORTED["sde"]:
             raise NotImplementedError(f"backbone {backbone!r} with sde {sde!r} is not "
-                                      "ported yet (ported: ncsnpp with ouve)")
+                                      f"ported yet (ported: {PORTED})")
+        self.train_config = {k: kwargs.pop(k, v) for k, v in _TRAINING_DEFAULTS.items()}
         self.backbone = backbone
         dnn_cls = BackboneRegistry.get_by_name(backbone)
         self.dnn = dnn_cls(**_filter_kwargs(dnn_cls, kwargs))
@@ -61,6 +90,10 @@ class ScoreModel(nn.Module):
         sde_cls = SDERegistry.get_by_name(sde)
         self.sde = sde_cls(**_filter_kwargs(sde_cls, kwargs))
         self.t_eps = t_eps
+        self.loss_type = loss_type
+        self.network_scaling = network_scaling
+        self.c_in_type, self.c_out_type, self.c_skip_type = c_in, c_out, c_skip
+        self.sigma_data = sigma_data
         self.sr = sr
         self.spec = spec if spec is not None else SpecTransform(
             **{k: v for k, v in kwargs.items() if k in _SPEC_KEYS})
@@ -75,10 +108,59 @@ class ScoreModel(nn.Module):
             if hasattr(module, "init_parameters"):
                 module.init_parameters(generator)
 
-    # --- forward contract ------------------------------------------------------------
+    # --- preconditioning scalings: 1.0 and 0.0 stand for the identity and nothing ------
+    def _c_in(self, t):
+        if self.c_in_type == "1":
+            return 1.0
+        elif self.c_in_type == "edm":
+            sigma = self.sde._std(t)
+            return _bcast(1.0 / torch.sqrt(sigma**2 + self.sigma_data**2))
+        raise ValueError(f"Invalid c_in type: {self.c_in_type}")
+
+    def _c_out(self, t):
+        if self.c_out_type == "1":
+            return 1.0
+        elif self.c_out_type == "sigma":
+            return _bcast(self.sde._std(t))
+        elif self.c_out_type == "1/sigma":
+            return _bcast(1.0 / self.sde._std(t))
+        elif self.c_out_type == "edm":
+            sigma = self.sde._std(t)
+            return _bcast(sigma * self.sigma_data / torch.sqrt(self.sigma_data**2 + sigma**2))
+        raise ValueError(f"Invalid c_out type: {self.c_out_type}")
+
+    def _c_skip(self, t):
+        if self.c_skip_type == "0":
+            return 0.0
+        elif self.c_skip_type == "edm":
+            sigma = self.sde._std(t)
+            return _bcast(self.sigma_data**2 / (sigma**2 + self.sigma_data**2))
+        raise ValueError(f"Invalid c_skip type: {self.c_skip_type}")
+
+    # --- forward contracts ---------------------------------------------------------------
     def forward(self, x_t, y, t):
-        """Legacy contract: score = -dnn(x_t, y, t)."""
-        return -self.dnn(x_t, y, t)
+        """The score (or, for ``ncsnpp_v2`` with ``data_prediction``, the clean
+        state) at (x_t, y, t)."""
+        if self.backbone != "ncsnpp_v2":
+            return -self.dnn(x_t, y, t)
+        c_in = self._c_in(t)
+        if not isinstance(c_in, float):  # 1.0: the identity, skipped
+            x_t_in, y_in = c_in * x_t, c_in * y
+        else:
+            x_t_in, y_in = x_t, y
+        out = self.dnn(x_t_in, y_in, t)
+        if self.network_scaling == "1/sigma":
+            out = out / _bcast(self.sde._std(t))
+        elif self.network_scaling == "1/t":
+            out = out / _bcast(t)
+        if self.loss_type in ("score_matching", "data_prediction"):
+            c_out, c_skip = self._c_out(t), self._c_skip(t)
+            if not isinstance(c_out, float):
+                out = c_out * out
+            return out if isinstance(c_skip, float) else c_skip * x_t + out
+        elif self.loss_type == "denoiser":
+            return (out - x_t) / _bcast(self.sde._std(t)) ** 2
+        raise ValueError(f"Invalid loss type: {self.loss_type}")
 
     def score_fn(self):
         """score_fn(x, y, t) for the samplers."""
@@ -93,13 +175,20 @@ class ScoreModel(nn.Module):
                 sampler_type: Optional[str] = None, predictor: str = "reverse_diffusion",
                 corrector: str = "ald", N: int = 30, corrector_steps: int = 1,
                 snr: float = 0.5, timeit: bool = False, pad_mode: str = "zero_pad",
-                prior_noise=None, corrector_noise=None):
+                method: str = "rk45", max_steps: int = 1000, prior_noise=None,
+                corrector_noise=None):
         """Enhance noisy waveform(s) ``(L,)`` or ``(B, L)`` end to end.
 
         Max-abs normalize -> STFT + compression transform -> pad T to a
-        multiple of 64 -> PC sampler -> inverse transform + iSTFT ->
-        un-normalize. Returns a numpy waveform of the input's shape, or
-        ``(x_hat, nfe, rtf)`` with ``timeit``.
+        multiple of 64 -> sampler -> inverse transform + iSTFT -> un-normalize.
+        Returns a numpy waveform of the input's shape, or ``(x_hat, nfe, rtf)``
+        with ``timeit``.
+
+        The sampler, as in the JAX package: ``sampler_type`` (default: the
+        SDE's) ``pc`` (predictor, corrector, N, snr) or ``ode`` (``method``
+        rk45 with ``max_steps``, or rk4 over N steps) on the OUVE SDE; on the
+        SBVE SDE the Schroedinger-bridge sampler, ``ode`` (``pc`` maps to it)
+        or ``sde``, which ignores ``N`` and always runs ``sde.N`` steps.
 
         ``generator`` draws the sampler noise (default: seed 0 on the model's
         device, so repeated calls agree). ``prior_noise`` and
@@ -109,8 +198,6 @@ class ScoreModel(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         stype = sampler_type if sampler_type is not None else self.sde.sampler_type
-        if stype != "pc":
-            raise NotImplementedError(f"sampler type {stype!r} is not ported yet (ported: pc)")
         start = time.time()
         y = torch.as_tensor(np.asarray(y_wav, dtype=np.float32), device=device)
         squeeze = y.ndim == 1
@@ -124,11 +211,25 @@ class ScoreModel(nn.Module):
         def as_device(a):
             return None if a is None else torch.as_tensor(a, device=device)
 
-        sde = dataclasses.replace(self.sde, N=N)
-        sample, nfe = sampling.pc_sampler(
-            predictor, corrector, sde, self.score_fn(), Y, generator=generator, denoise=True,
-            eps=self.t_eps, snr=snr, corrector_steps=corrector_steps,
-            noise=as_device(prior_noise), corrector_noise=as_device(corrector_noise))
+        noise = as_device(prior_noise)
+        score_fn = self.score_fn()
+        if self.sde_name == "ouve":
+            sde = dataclasses.replace(self.sde, N=N)
+            if stype == "pc":
+                sample, nfe = sampling.pc_sampler(
+                    predictor, corrector, sde, score_fn, Y, generator=generator,
+                    denoise=True, eps=self.t_eps, snr=snr, corrector_steps=corrector_steps,
+                    noise=noise, corrector_noise=as_device(corrector_noise))
+            elif stype == "ode":
+                sample, nfe = sampling.ode_sampler(
+                    sde, score_fn, Y, generator=generator, eps=self.t_eps, N=N, method=method,
+                    max_steps=max_steps, noise=noise)
+            else:
+                raise ValueError(f"Invalid sampler type for SGMSE sampling: {stype}")
+        else:  # sbve: pc maps to ode, and N is not passed (the JAX enhance passes none)
+            sample, nfe = sampling.sb_sampler(
+                self.sde, score_fn, Y, generator=generator,
+                sampler_type="ode" if stype == "pc" else stype, noise=noise)
         x_hat = (self.to_audio(sample[:, 0], t_orig) * norm).cpu().numpy()  # host fence
         end = time.time()
         if squeeze:
@@ -136,3 +237,71 @@ class ScoreModel(nn.Module):
         if timeit:
             return x_hat, nfe, (end - start) / (x_hat.shape[-1] / self.sr)
         return x_hat
+
+    def enhance_long(self, y_wav, chunk_seconds: float = 20.0, overlap: float = 0.1,
+                     generator: Optional[torch.Generator] = None, timeit: bool = False,
+                     **kwargs):
+        """Enhance one long utterance ``(L,)`` in chunks of ``chunk_seconds``
+        (at ``self.sr``) overlapping by ``overlap``, and overlap-add them with a
+        linear crossfade (none at the start of the first chunk and at the end
+        of the last). Every chunk has the same length, so one padded shape.
+        The chunks draw their noise from ``generator`` in order. ``kwargs`` go
+        to :meth:`enhance`. Returns the waveform, or ``(x_hat, nfe, rtf)`` with
+        ``timeit``."""
+        device = self.device
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        y_wav = np.asarray(y_wav, dtype=np.float32)
+        if y_wav.ndim != 1:
+            raise ValueError("enhance_long takes one utterance (L,)")
+        start = time.time()
+        chunk = int(chunk_seconds * self.sr)
+        hop = int(chunk * (1.0 - overlap))
+        if y_wav.shape[-1] <= chunk:
+            out, nfe, _ = self.enhance(y_wav, generator=generator, timeit=True, **kwargs)
+        else:
+            n_chunks = 1 + math.ceil(max(y_wav.shape[-1] - chunk, 0) / hop)
+            total = (n_chunks - 1) * hop + chunk
+            y_pad = np.pad(y_wav, (0, total - y_wav.shape[-1]))
+            out = np.zeros(total, dtype=np.float32)
+            weight = np.zeros(total, dtype=np.float32)
+            ramp = chunk - hop  # crossfade length
+            win = np.ones(chunk, dtype=np.float32)
+            if ramp > 0:
+                win[:ramp] = np.linspace(0.0, 1.0, ramp, endpoint=False)
+                win[-ramp:] = np.linspace(1.0, 0.0, ramp, endpoint=False)
+            nfe = 0
+            for i in range(n_chunks):
+                seg = y_pad[i * hop: i * hop + chunk]
+                x_hat, n, _ = self.enhance(seg, generator=generator, timeit=True, **kwargs)
+                nfe += n
+                w = win.copy()
+                if i == 0 and ramp > 0:
+                    w[:ramp] = 1.0  # no fade-in on the first chunk
+                if i == n_chunks - 1 and ramp > 0:
+                    w[-ramp:] = 1.0  # no fade-out on the last chunk
+                out[i * hop: i * hop + chunk] += x_hat * w
+                weight[i * hop: i * hop + chunk] += w
+            out = (out / np.maximum(weight, 1e-8))[: y_wav.shape[-1]]
+        if timeit:
+            return out, nfe, (time.time() - start) / (y_wav.shape[-1] / self.sr)
+        return out
+
+    # --- config round trip (the config.json of a JAX checkpoint) -------------------------
+    def config_dict(self) -> dict:
+        """The JAX ``ScoreModel.config_dict()`` of this model."""
+        cfg = dict(backbone=self.backbone, sde=self.sde_name, t_eps=self.t_eps,
+                   loss_type=self.loss_type, network_scaling=self.network_scaling,
+                   c_in=self.c_in_type, c_out=self.c_out_type, c_skip=self.c_skip_type,
+                   sigma_data=self.sigma_data, sr=self.sr, **self.train_config)
+        cfg.update(self.spec.config_dict())
+        cfg.update(self.sde.config_dict())
+        cfg.update({k: list(v) if isinstance(v, tuple) else v
+                    for k, v in self.dnn.config.items()})
+        return cfg
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "ScoreModel":
+        """Build from a :meth:`config_dict` (or a JAX checkpoint's config.json)."""
+        cfg = dict(cfg)
+        return cls(cfg.pop("backbone"), cfg.pop("sde"), **cfg)

@@ -1,6 +1,6 @@
 """Score-network backbones. Importing this package registers them with the
 BackboneRegistry."""
 from .registry import BackboneRegistry
-from .ncsnpp import NCSNpp, NCSNppBase
+from .ncsnpp import NCSNpp, NCSNpp_48k, NCSNpp_v2, NCSNppBase
 
-__all__ = ["BackboneRegistry", "NCSNpp", "NCSNppBase"]
+__all__ = ["BackboneRegistry", "NCSNpp", "NCSNpp_48k", "NCSNpp_v2", "NCSNppBase"]

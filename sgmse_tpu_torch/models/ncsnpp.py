@@ -1,5 +1,11 @@
-"""NCSN++ score network (the flagship ``ncsnpp`` backbone). Counterpart of
-``sgmse_tpu/models/ncsnpp.py:46-297``.
+"""NCSN++ score networks: the flagship ``ncsnpp``, ``ncsnpp_v2`` and
+``ncsnpp_48k``. Counterpart of ``sgmse_tpu/models/ncsnpp.py``.
+
+The three share one U-Net and differ in defaults: ``ncsnpp_v2`` does not scale
+its output by 1/t (its preconditioning lives in the ScoreModel);
+``ncsnpp_48k`` has no attention outside the middle block, no progressive
+pyramids (its head is ``out_norm`` GroupNorm+SiLU and the ``out_conv`` 3x3)
+and applies the output layer before the 1/t scaling.
 
 The complex inputs ``x_t``/``y`` of shape (B, 1, F, T) are packed into a real
 (B, 4, F, T) tensor [x.re, x.im, y.re, y.im] in channels_last memory; F plays
@@ -11,9 +17,10 @@ initialised with; a forward whose frequency height triggers attention at a
 level without parameters raises.
 
 Ported branches: BigGAN res-blocks with FIR resampling, ``output_skip`` and
-``input_skip`` pyramids combined by ``sum``, swish, Fourier or positional time
-embedding. The others (``ddpm`` blocks, ``residual`` pyramids, ``cat``
-combine, non-FIR resampling, other activations) raise NotImplementedError.
+``input_skip`` pyramids combined by ``sum`` or no pyramids (``none``), swish,
+Fourier or positional time embedding. The others (``ddpm`` blocks,
+``residual`` pyramids, ``cat`` combine, non-FIR resampling, other
+activations) raise NotImplementedError.
 Inference only: dropout and rematerialisation are training options and are
 accepted and ignored.
 
@@ -73,19 +80,21 @@ class NCSNppBase(nn.Module):
         precision: str = "float32",
         remat: bool = False,
     ):
+        config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         super().__init__()
+        self.config = config
         unported = {
-            "nonlinearity": (nonlinearity, "swish"),
-            "resblock_type": (resblock_type, "biggan"),
-            "progressive": (progressive, "output_skip"),
-            "progressive_input": (progressive_input, "input_skip"),
-            "progressive_combine": (progressive_combine.lower(), "sum"),
-            "fir": (fir, True),
+            "nonlinearity": (nonlinearity, ("swish",)),
+            "resblock_type": (resblock_type, ("biggan",)),
+            "progressive": (progressive, ("output_skip", "none")),
+            "progressive_input": (progressive_input, ("input_skip", "none")),
+            "progressive_combine": (progressive_combine.lower(), ("sum",)),
+            "fir": (fir, (True,)),
         }
         for name, (got, ported) in unported.items():
-            if got != ported:
+            if got not in ported:
                 raise NotImplementedError(f"NCSNpp {name}={got!r} is not ported yet "
-                                          f"(ported: {ported!r})")
+                                          f"(ported: {ported})")
         if embedding_type not in ("fourier", "positional"):
             raise ValueError(f"embedding_type {embedding_type} unrecognized.")
         self.nf = nf
@@ -100,6 +109,8 @@ class NCSNppBase(nn.Module):
         self.output_layer_before_sigma = output_layer_before_sigma
         self.image_size = image_size
         self.precision = precision
+        self.output_skip = progressive == "output_skip"
+        self.input_skip = progressive_input == "input_skip"
         dt = self.compute_dtype = compute_dtype_for(precision)
         num_channels = 4
         temb_dim = nf * 4 if conditional else None
@@ -136,8 +147,9 @@ class NCSNppBase(nn.Module):
                 hs_c.append(in_ch)
             if i_level != num_resolutions - 1:
                 resblock(f"down_{i_level}_downres", in_ch, down=True)
-                self.add_module(f"down_{i_level}_combine",
-                                Combine(num_channels, in_ch, method="sum", dtype=dt))
+                if self.input_skip:
+                    self.add_module(f"down_{i_level}_combine",
+                                    Combine(num_channels, in_ch, method="sum", dtype=dt))
                 hs_c.append(in_ch)
 
         resblock("mid_block0", in_ch)
@@ -153,12 +165,17 @@ class NCSNppBase(nn.Module):
                 h_c = in_ch = out_ch
             if res in self.attn_resolutions:
                 attn(f"up_{i_level}_attn", in_ch)
-            self.add_module(f"up_{i_level}_pyramid_norm", GroupNorm(in_ch, silu=True, dtype=dt))
-            self.add_module(f"up_{i_level}_pyramid_conv",
-                            Conv3x3(in_ch, num_channels, init_scale=init_scale, dtype=dt))
+            if self.output_skip:
+                self.add_module(f"up_{i_level}_pyramid_norm",
+                                GroupNorm(in_ch, silu=True, dtype=dt))
+                self.add_module(f"up_{i_level}_pyramid_conv",
+                                Conv3x3(in_ch, num_channels, init_scale=init_scale, dtype=dt))
             if i_level != 0:
                 resblock(f"up_{i_level}_upres", in_ch, up=True)
         assert not hs_c
+        if not self.output_skip:
+            self.out_norm = GroupNorm(in_ch, silu=True, dtype=dt)
+            self.out_conv = Conv3x3(in_ch, num_channels, init_scale=init_scale, dtype=dt)
 
         # 1x1 conv 4 -> 2 with torch's default init.
         self.output_layer = Conv2d(num_channels, 2, 1, dtype=dt, init="torch")
@@ -205,8 +222,9 @@ class NCSNppBase(nn.Module):
                 hs.append(h)
             if i_level != num_resolutions - 1:
                 h = m[f"down_{i_level}_downres"](hs[-1], temb)
-                input_pyramid = ufd.downsample_2d(input_pyramid, self.fir_kernel, factor=2)
-                h = m[f"down_{i_level}_combine"](input_pyramid, h)
+                if self.input_skip:
+                    input_pyramid = ufd.downsample_2d(input_pyramid, self.fir_kernel, factor=2)
+                    h = m[f"down_{i_level}_combine"](input_pyramid, h)
                 hs.append(h)
 
         # --- middle -------------------------------------------------------------------
@@ -221,19 +239,21 @@ class NCSNppBase(nn.Module):
                 h = m[f"up_{i_level}_block{i_block}"](torch.cat([h, hs.pop()], dim=1), temb)
             if h.shape[2] in self.attn_resolutions:
                 h = self._attn(f"up_{i_level}_attn", h)
-            pyramid_h = m[f"up_{i_level}_pyramid_conv"](m[f"up_{i_level}_pyramid_norm"](h))
-            if i_level == num_resolutions - 1:
-                pyramid = pyramid_h
-            else:
-                pyramid = ufd.upsample_2d(pyramid.contiguous(memory_format=CL),
-                                          self.fir_kernel, factor=2)
-                pyramid = pyramid + pyramid_h
+            if self.output_skip:
+                pyramid_h = m[f"up_{i_level}_pyramid_conv"](m[f"up_{i_level}_pyramid_norm"](h))
+                if i_level == num_resolutions - 1:
+                    pyramid = pyramid_h
+                else:
+                    pyramid = ufd.upsample_2d(pyramid.contiguous(memory_format=CL),
+                                              self.fir_kernel, factor=2)
+                    pyramid = pyramid + pyramid_h
             if i_level != 0:
                 h = m[f"up_{i_level}_upres"](h, temb)
         assert not hs
+        h = pyramid if self.output_skip else self.out_conv(self.out_norm(h))
 
         # --- output scaling + complex packing -----------------------------------------
-        h = pyramid.float()
+        h = h.float()
         if self.output_layer_before_sigma:
             h = self.output_layer(h)
             if self.scale_by_sigma:
@@ -265,3 +285,25 @@ class NCSNpp(NCSNppBase):
                             choices=("float32", "bfloat16"),
                             help="Compute dtype (params stay float32).")
         return parser
+
+
+@BackboneRegistry.register("ncsnpp_v2")
+class NCSNpp_v2(NCSNppBase):
+    """The U-Net used with preconditioning: no 1/t output scaling; c_in, c_out
+    and c_skip live in the ScoreModel."""
+
+    def __init__(self, scale_by_sigma: bool = False, **kwargs):
+        super().__init__(scale_by_sigma=scale_by_sigma, **kwargs)
+
+
+@BackboneRegistry.register("ncsnpp_48k")
+class NCSNpp_48k(NCSNppBase):
+    """48 kHz fullband variant: attention in the middle block only, no
+    progressive pyramids, output layer before the 1/t scaling."""
+
+    def __init__(self, attn_resolutions: Sequence[int] = (), progressive: str = "none",
+                 progressive_input: str = "none", output_layer_before_sigma: bool = True,
+                 **kwargs):
+        super().__init__(attn_resolutions=attn_resolutions, progressive=progressive,
+                         progressive_input=progressive_input,
+                         output_layer_before_sigma=output_layer_before_sigma, **kwargs)

@@ -1,10 +1,11 @@
 """Where the time of one score-network evaluation goes on the card.
 
-    python -m sgmse_tpu_torch.nfe_profile [--out DIR]
+    python -m sgmse_tpu_torch.nfe_profile [--backbone ncsnpp_48k] [--out DIR]
 
-Builds the full-width NCSN++ (seeded weights, bfloat16 compute, channels_last)
-and evaluates it on a (4, 1, 256, 256) input (four 2.04-s utterances), as one
-step of the PC sampler does:
+Builds a full-width NCSN++ (seeded weights, bfloat16 compute, channels_last)
+and evaluates it on a (4, 1, F, 256) input (four 2.04-s utterances; F = 256
+for the flagship ``ncsnpp``, 768 for ``ncsnpp_48k``), as one step of the
+sampler does:
 
 - wall time per evaluation: CUDA events around windows of 20 back-to-back
   evaluations (no synchronisation inside a window, as in the sampler's loop),
@@ -27,6 +28,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .kernel_times import BINS
 
 BATCH, FRAMES = 4, 256  # the main path's batch of 2.04-s utterances
 REPS = 20               # evaluations per timed window
@@ -81,6 +84,7 @@ def breakdown(events, evaluations: int) -> dict:
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--backbone", choices=sorted(BINS), default="ncsnpp")
     parser.add_argument("--out", type=str, default="chiprun_out")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -88,11 +92,11 @@ def main(argv=None) -> dict:
     from .model import ScoreModel
 
     dev = torch.device("cuda", 0)
-    model = ScoreModel("ncsnpp", "ouve", precision="bfloat16", init_scale=1.0)
+    model = ScoreModel(args.backbone, "ouve", precision="bfloat16", init_scale=1.0)
     model.init_params(torch.Generator().manual_seed(0))
     model = model.to(dev, memory_format=torch.channels_last).eval()
     rng = np.random.default_rng(0)
-    shape = (BATCH, 1, 256, FRAMES)
+    shape = (BATCH, 1, BINS[args.backbone], FRAMES)
     x, y = (torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
                              .astype(np.complex64) * 0.3).to(dev) for _ in range(2))
     t = torch.full((BATCH,), 0.5, device=dev)
@@ -121,7 +125,7 @@ def main(argv=None) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     result = dict(card=card.splitlines()[0] if card else torch.cuda.get_device_name(0),
-                  batch=BATCH, frames=FRAMES,
+                  backbone=args.backbone, batch=BATCH, bins=shape[2], frames=FRAMES,
                   wall_ms=statistics.median(times), wall_ms_windows=times,
                   **breakdown(json.loads(trace.read_text())["traceEvents"], TRACED))
     result["idle_share_untraced"] = 1.0 - result["busy_ms"] / result["wall_ms"]

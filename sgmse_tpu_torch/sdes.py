@@ -1,4 +1,4 @@
-"""Diffusion-process (SDE) layer, OUVE part. Counterpart of ``sgmse_tpu/sdes.py``.
+"""Diffusion-process (SDE) layer: OUVE and SBVE. Counterpart of ``sgmse_tpu/sdes.py``.
 
 Conventions, as in the JAX package:
 - ``t`` has shape ``(B,)``; states ``x``/``y`` have shape ``(B, C, F, T)``
@@ -54,6 +54,9 @@ class SDE:
 
     def prior_sampling(self, y, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.prior_from_noise(crandn(y.shape, generator, y.device), y)
+
+    def _std(self, t) -> torch.Tensor:
+        raise NotImplementedError
 
     # --- discretizations ------------------------------------------------------------------
     def discretize(self, x, y, t, stepsize) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,6 +130,67 @@ class OUVESDE(SDE):
         """x_T = y + sigma(T) z."""
         std = self._std(torch.full((y.shape[0],), self.T, dtype=torch.float32, device=y.device))
         return y + z.to(y.dtype) * _bcast(std).to(y.dtype)
+
+
+@SDERegistry.register("sbve")
+@dataclasses.dataclass(frozen=True)
+class SBVESDE(SDE):
+    """Schroedinger-bridge Variance-Exploding SDE (Jukic et al., 2024).
+
+    dx = sqrt(c) k^t dw: no drift; the bridge runs from x0 at t=0 to y at t=T.
+    """
+
+    k: float = 2.6
+    c: float = 0.4
+    N: int = 50
+    eps: float = 1e-8
+    sampler_type: str = "ode"
+
+    def sde(self, x, y, t):
+        drift = torch.zeros_like(x)
+        diffusion = math.sqrt(self.c) * self.k**t
+        return drift, diffusion * torch.ones_like(t)
+
+    def sigmas_alphas(self, t):
+        """The closed-form noise schedule at t: (sigma_t, sigma_T, sigma_bar_t,
+        alpha_t, alpha_T, alpha_bar_t), float32 like ``t``.
+
+        sigma_T^2 - sigma_t^2 loses every digit to cancellation as t -> T when
+        taken as a difference of squares, so it is taken in closed form:
+        c k^{2t} expm1(2 ln k (T - t)) / (2 ln k).
+        """
+        alpha_t = torch.ones_like(t)
+        alpha_T = torch.ones_like(t)
+        two_log_k = 2.0 * math.log(self.k)
+        sigma_t = torch.sqrt(self.c * torch.expm1(two_log_k * t) / two_log_k)
+        sigma_T2 = torch.tensor(self.c * math.expm1(two_log_k * self.T) / two_log_k,
+                                dtype=torch.float32, device=t.device)
+        sigma_T = torch.sqrt(sigma_T2) * torch.ones_like(t)
+        alpha_bart = alpha_t / (alpha_T + self.eps)
+        var_diff = self.c * torch.exp(two_log_k * t) * torch.expm1(two_log_k * (self.T - t)) \
+            / two_log_k
+        sigma_bart = torch.sqrt(var_diff + self.eps)
+        return sigma_t, sigma_T, sigma_bart, alpha_t, alpha_T, alpha_bart
+
+    def _mean(self, x0, y, t):
+        sigma_t, sigma_T, sigma_bart, alpha_t, _, alpha_bart = self.sigmas_alphas(t)
+        w_xt = alpha_t * sigma_bart**2 / (sigma_T**2 + self.eps)
+        w_yt = alpha_bart * sigma_t**2 / (sigma_T**2 + self.eps)
+        return _bcast(w_xt) * x0 + _bcast(w_yt) * y
+
+    def _std(self, t):
+        sigma_t, sigma_T, sigma_bart, alpha_t, _, _ = self.sigmas_alphas(t)
+        return alpha_t * sigma_bart * sigma_t / (sigma_T + self.eps)
+
+    def marginal_prob(self, x0, y, t):
+        return self._mean(x0, y, t), self._std(t)
+
+    def prior_sampling(self, y, generator: Optional[torch.Generator] = None):
+        """x_T = y: the bridge's prior is noiseless."""
+        return y
+
+    def prior_from_noise(self, z, y):
+        return y
 
 
 def crandn(shape, generator: Optional[torch.Generator] = None, device=None,

@@ -6,8 +6,8 @@ They need an NVIDIA GPU with nvcc and skip elsewhere. On the card:
 
 Each kernel is held against its plain PyTorch version on the same inputs, at
 the small test config's shapes plus awkward ones (C = 4, odd sizes, negative
-padding, a pre-bias, pairs); chip_smoke.py does the same at the full-width
-shapes.
+padding, a pre-bias, pairs) and the largest of the 48 kHz network (F = 768);
+chip_smoke.py does the same at every full-width shape.
 Tolerances, relative to max|plain|: float32 2e-5 (sums in another order),
 bfloat16 2^-7 (one bf16 rounding step).
 """
@@ -65,6 +65,8 @@ def test_upfirdn2d_kernel_matches_plain(dev, dtype, shape, up, down, pad):
     ((2, 128, 32, 48), 1, 2, (1, 1)),
     ((2, 64, 16, 8), 2, 1, (2, 1)),
     ((1, 12, 9, 11), 2, 1, (2, 1)),
+    ((4, 128, 768, 256), 1, 2, (1, 1)),  # the 48 kHz net's largest down pair
+    ((4, 128, 384, 128), 2, 1, (2, 1)),  # and its largest up pair, to 768x256
 ])
 def test_upfirdn2d_pair_kernel_matches_plain(dev, dtype, shape, up, down, pad):
     x0, x1 = _input(shape, dtype, dev, seed=0), _input(shape, dtype, dev, seed=1)
@@ -83,7 +85,10 @@ def test_upfirdn2d_pair_kernel_matches_plain(dev, dtype, shape, up, down, pad):
                                              ((1, 384, 16, 16), True, False),
                                              ((2, 32, 16, 16), False, False),
                                              ((4, 128, 128, 128), True, True),
-                                             ((4, 512, 4, 4), True, True)])
+                                             ((4, 512, 4, 4), True, True),
+                                             # the 48 kHz net's largest: ~403 MB in bf16
+                                             ((4, 256, 768, 256), True, True),
+                                             ((4, 128, 12, 4), False, False)])
 def test_group_norm_act_kernel_matches_plain(dev, dtype, shape, silu, bias):
     x = _input(shape, dtype, dev) * 2.0 + 0.5
     b, c = shape[:2]

@@ -94,3 +94,13 @@ def test_spec_transform_round_trip():
     _close(port.spec_to_wav(spec, length=2016).numpy(),
            ref.spec_to_wav(jnp.asarray(spec.numpy()), length=2016))
     assert port.num_freqs == ref.num_freqs and port.config_dict() == ref.config_dict()
+
+
+@pytest.mark.parametrize("frames", [2, 5, 20, 32, 33, 70])
+def test_pad_spec_reflection_of_short_inputs(frames):
+    """Reflection where the pad is as long as the spectrogram or longer
+    (T <= 32 pads by >= T): numpy's reflect reflects again at each end."""
+    z = _spec((1, 1, 4, frames), seed=5)
+    got = dsp.pad_spec(torch.from_numpy(z), mode="reflection").numpy()
+    np.testing.assert_array_equal(got, np.asarray(jdsp.pad_spec(jnp.asarray(z), mode="reflection")))
+    assert got.shape[-1] == 64 * -(-frames // 64)

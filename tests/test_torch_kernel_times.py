@@ -114,3 +114,22 @@ def test_per_nfe_sums_each_signature_times_its_calls():
     assert gn["bound_ms"] == 2.0 and gn["library_ms"] is None and gn["bound_by"] == "bytes"
     up = sums["upfirdn2d"]
     assert up["library_ms"] == 0.3 and up["bound_by"] == "operations"
+
+
+@pytest.mark.parametrize("backbone,f_bins,per_forward,silu_split", [
+    ("ncsnpp", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4]),
+    ("ncsnpp_v2", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4]),
+    ("ncsnpp_48k", 768, {"upfirdn2d": 12, "group_norm_act": 100}, [99, 1]),
+])
+def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward, silu_split):
+    """At full depth (narrow, short): the calls chip_smoke.py expects per network
+    evaluation. The 48 kHz net has no pyramids (res-block pairs only) and keeps
+    the middle block's attention, whose norm has no SiLU."""
+    model = ScoreModel(backbone, "ouve", nf=8, init_scale=1.0).dnn.eval()
+    x = torch.zeros(1, 1, f_bins, 64, dtype=torch.complex64)
+    with torch.inference_mode(), kt.routed(calls=[], plain=True) as calls:
+        model(x, x, torch.full((1,), 0.5))
+    assert {k: sum(1 for n, _ in calls if n == k) for k in per_forward} == per_forward
+    gn_sigs = [s for n, s in calls if n == "group_norm_act"]
+    assert [sum(1 for s in gn_sigs if s[3] == flag) for flag in (True, False)] == silu_split
+    assert sum(1 for s in gn_sigs if s[4]) == 49

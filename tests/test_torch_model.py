@@ -58,7 +58,7 @@ def test_constructor_routes_kwargs():
     assert model.sde.theta == 2.0 and model.dnn.nf == 16 and model.dnn.ch_mult == (1, 2)
     assert model.spec.n_fft == 126 and model.t_eps == 0.05
     with pytest.raises(NotImplementedError):
-        ScoreModel("ncsnpp_v2", "ouve")
+        ScoreModel("dcunet", "ouve")
 
 
 def test_enhance_entry_point_end_to_end(tmp_path):

@@ -1,7 +1,9 @@
-"""The port's NCSN++ against the JAX package's, at the small test config.
+"""The port's NCSN++ (ncsnpp, ncsnpp_v2, ncsnpp_48k) against the JAX
+package's, at the small test config.
 
-Weights: the JAX model's own init (init_scale 1, so no branch is ~zero),
-carried over by ``convert.params_from_jax``. Inputs: numpy, seeded.
+Weights: the JAX model's own init for ncsnpp, the port's for the variants
+(init_scale 1, so no branch is ~zero), carried over by
+``convert.params_from_jax`` / ``convert.jax_tree_from_state_dict``. Inputs: numpy, seeded.
 Tolerance: float32 forward within 1e-4 of max|out| (convolution sums run in
 another order in the two frameworks); bfloat16 forward within 5e-2 of
 max|out| (both round every layer's output to bf16, at different places).
@@ -12,9 +14,10 @@ import torch
 
 import jax
 
+from sgmse_tpu.models import BackboneRegistry as JaxBackbones
 from sgmse_tpu.models import NCSNpp as JaxNCSNpp
 from sgmse_tpu_torch import convert
-from sgmse_tpu_torch.models import BackboneRegistry, NCSNpp
+from sgmse_tpu_torch.models import BackboneRegistry, NCSNpp, NCSNpp_48k, NCSNpp_v2
 
 SMALL = dict(nf=16, ch_mult=(1, 1, 2), num_res_blocks=1, attn_resolutions=(16,),
              image_size=64, init_scale=1.0)
@@ -99,3 +102,60 @@ def test_full_config_param_count():
 def test_unported_branches_raise(kwargs):
     with pytest.raises(NotImplementedError):
         NCSNpp(**{**SMALL, **kwargs})
+
+
+VARIANTS = {"ncsnpp_v2": SMALL, "ncsnpp_48k": {k: v for k, v in SMALL.items()
+                                               if k != "attn_resolutions"}}
+
+
+@pytest.fixture(scope="module")
+def variant_params():
+    """Port-initialised weights of each variant, as a JAX tree."""
+    out = {}
+    for name, config in VARIANTS.items():
+        net = BackboneRegistry.get_by_name(name)(**config)
+        for module in net.modules():
+            if hasattr(module, "init_parameters"):
+                module.init_parameters(torch.Generator().manual_seed(5))
+        out[name] = convert.jax_tree_from_state_dict(net.state_dict())
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_variant_param_tree_matches_jax(name):
+    x, y, t = _inputs()
+    config = VARIANTS[name]
+    shapes = jax.eval_shape(JaxBackbones.get_by_name(name)(**config).init, jax.random.key(0),
+                            x, y, t)["params"]
+    want = {k: v.shape for k, v in convert.flatten_tree(
+        jax.tree.map(lambda s: np.empty(s.shape, np.float32), shapes)).items()}
+    net = BackboneRegistry.get_by_name(name)(**config)
+    got = {k: v.shape for k, v in
+           convert.flatten_tree(convert.jax_tree_from_state_dict(net.state_dict())).items()}
+    assert got == want
+
+
+@pytest.mark.parametrize("precision,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_variant_forward_matches_jax(variant_params, name, precision, tol):
+    x, y, t = _inputs(seed=2)
+    config = dict(VARIANTS[name], precision=precision)
+    params = variant_params[name]
+    ref = np.asarray(jax.jit(JaxBackbones.get_by_name(name)(**config).apply)(
+        {"params": params}, x, y, t))
+    net = BackboneRegistry.get_by_name(name)(**config)
+    net.load_state_dict(convert.params_from_jax(params, name, **config))
+    with torch.no_grad():
+        got = net.to(memory_format=torch.channels_last).eval()(
+            torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(t)).numpy()
+    assert got.shape == ref.shape == (2, 1, 64, 64)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err < tol, f"relative error {err}"
+
+
+def test_variant_defaults():
+    v2, k48 = NCSNpp_v2(**SMALL), NCSNpp_48k(**VARIANTS["ncsnpp_48k"])
+    assert not v2.scale_by_sigma and v2.output_skip and v2.input_skip
+    assert k48.attn_resolutions == () and not k48.output_skip and not k48.input_skip
+    assert k48.output_layer_before_sigma and hasattr(k48, "out_norm")
+    assert not any("pyramid" in n or "combine" in n for n, _ in k48.named_modules())

@@ -6,6 +6,8 @@ port is fed the complex normals that JAX's ``crandn`` draws from the keys the
 JAX step splits. Tolerance: 1e-5 relative to max|ref| for single steps, 1e-4
 for a whole trajectory (float32 time grids rounded in two libraries).
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -120,3 +122,114 @@ def test_corrector_noise_hook_makes_runs_repeat(problem):
                                 generator=torch.Generator().manual_seed(seed), snr=0.5,
                                 noise=z, corrector_noise=cz)[0] for seed in (1, 2)]
     assert torch.equal(runs[0], runs[1])
+
+
+def test_euler_maruyama_step(problem):
+    x0, y, x, t = problem
+    jsde, psde = jsdes.OUVESDE(N=30), sdes.OUVESDE(N=30)
+    z = _cplx(4)
+    ref = js.euler_maruyama_predictor(jsde, _oracle(jsde, jnp.asarray(x0)))(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(t), None, None, noise=jnp.asarray(z))
+    got = sampling.euler_maruyama_predictor(psde, _oracle(psde, torch.from_numpy(x0)))(
+        torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(t), None,
+        noise=torch.from_numpy(z))
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-5)
+
+
+@pytest.mark.parametrize("n_steps", [1, 2])
+def test_langevin_step_with_jax_noise(problem, n_steps):
+    x0, y, x, t = problem
+    jsde, psde = jsdes.OUVESDE(), sdes.OUVESDE()
+    key = jax.random.key(12)
+    ref = js.langevin_corrector(jsde, _oracle(jsde, jnp.asarray(x0)), snr=0.5, n_steps=n_steps)(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(t), key)
+    noise, k = [], key
+    for _ in range(n_steps):  # the keys the JAX step splits, in its order
+        k, sub = jax.random.split(k)
+        noise.append(np.asarray(jsdes.crandn(sub, x.shape)))
+    got = sampling.langevin_corrector(psde, _oracle(psde, torch.from_numpy(x0)), 0.5, n_steps)(
+        torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(t),
+        noise=torch.from_numpy(np.stack(noise)))
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-5)
+
+
+def test_rk4_with_injected_prior(problem):
+    x0, y, _, _ = problem
+    jsde, psde = jsdes.OUVESDE(N=5), sdes.OUVESDE(N=5)
+    z = _cplx(5)
+    program = js.ode_sampler_program(jsde, _oracle(jsde, jnp.asarray(x0)), method="rk4",
+                                     inject_prior=True)
+    ref, nfe = program(jax.random.key(0), jnp.asarray(y), jnp.asarray(z))
+    got, pnfe = sampling.ode_sampler(psde, _oracle(psde, torch.from_numpy(x0)),
+                                     torch.from_numpy(y), method="rk4", noise=torch.from_numpy(z))
+    assert pnfe == nfe == 4 * 5 + 1
+    _close(got, ref, 1e-4)
+
+
+def _rk45_oracle(sde, x0, sin):
+    """The exact OUVE score plus a term oscillating in t: its truncation error
+    then outweighs float32 rounding in the step controller's error estimate
+    from the first step on, so both frameworks take the same decisions (with
+    the plain score the estimate of the smooth early steps is rounding noise)."""
+    score = _oracle(sde, x0)
+    return lambda x, y, t: score(x, y, t) + 3.0 * sin(30.0 * t)[:, None, None, None] * y
+
+
+@pytest.mark.parametrize("max_steps", [1000, 3])
+def test_rk45_with_injected_prior_takes_jax_steps(problem, max_steps):
+    """Same accept/reject decisions, so the same NFE; max_steps cut short warns."""
+    x0, y, _, _ = problem
+    jsde, psde = jsdes.OUVESDE(), sdes.OUVESDE()
+    z = _cplx(6)
+    program = js.ode_sampler_program(jsde, _rk45_oracle(jsde, jnp.asarray(x0), jnp.sin),
+                                     method="rk45", max_steps=max_steps, inject_prior=True)
+    with warnings.catch_warnings(record=True) as jax_warned:
+        warnings.simplefilter("always")
+        ref, nfe = program(jax.random.key(0), jnp.asarray(y), jnp.asarray(z))
+    with warnings.catch_warnings(record=True) as port_warned:
+        warnings.simplefilter("always")
+        got, pnfe = sampling.ode_sampler(psde, _rk45_oracle(psde, torch.from_numpy(x0), torch.sin),
+                                         torch.from_numpy(y), max_steps=max_steps,
+                                         noise=torch.from_numpy(z))
+    cut = max_steps < 10
+    assert [("max_steps" in str(w.message)) for w in jax_warned] == [cut] * len(jax_warned)
+    assert len(port_warned) == int(cut) and (not cut or "max_steps" in str(port_warned[0].message))
+    assert pnfe == nfe and (nfe == 2 + 6 * max_steps + 1 if cut else nfe > 30)
+    _close(got, ref, 1e-4)
+
+
+def _sb_oracle(x0):
+    """An analytic data prediction that depends on the state and the time."""
+    def model_fn(x, y, t):
+        return x0 + 0.1 * t[:, None, None, None] * (x - y)
+    return model_fn
+
+
+@pytest.mark.parametrize("n,rtol", [(1, 1e-5), (12, 1e-4)])
+def test_sb_ode_matches_jax(problem, n, rtol):
+    """n = 1 is one step; n = 12 a whole run (float32 grids in two libraries)."""
+    x0, y, _, _ = problem
+    jsde, psde = jsdes.SBVESDE(N=n), sdes.SBVESDE(N=n)
+    program, nfe = js.sb_sampler_program(jsde, _sb_oracle(jnp.asarray(x0)), sampler_type="ode")
+    ref = program(jax.random.key(0), jnp.asarray(y))
+    got, pnfe = sampling.sb_sampler(psde, _sb_oracle(torch.from_numpy(x0)), torch.from_numpy(y),
+                                    sampler_type="ode")
+    assert pnfe == nfe == n
+    _close(got, ref, rtol)
+
+
+@pytest.mark.parametrize("n,rtol", [(1, 1e-5), (2, 1e-5), (12, 1e-4)])
+def test_sb_sde_matches_jax_with_its_noise(problem, n, rtol):
+    """JAX's inject_steps noise (N, B, 1, F, T) fed to the port; the last step adds none."""
+    x0, y, _, _ = problem
+    jsde, psde = jsdes.SBVESDE(N=n), sdes.SBVESDE(N=n)
+    z = np.stack([_cplx(40 + i) for i in range(n)])
+    program, nfe = js.sb_sampler_program(jsde, _sb_oracle(jnp.asarray(x0)), sampler_type="sde",
+                                         inject_steps=True)
+    ref = program(jax.random.key(0), jnp.asarray(y), jnp.asarray(z))
+    got, pnfe = sampling.sb_sampler(psde, _sb_oracle(torch.from_numpy(x0)), torch.from_numpy(y),
+                                    sampler_type="sde", noise=torch.from_numpy(z))
+    assert pnfe == nfe == n
+    _close(got, ref, rtol)

@@ -82,3 +82,36 @@ def test_crandn_statistics_and_generator():
     assert torch.equal(a, b)
     std_T = float(sdes.OUVESDE()._std(torch.ones(1)))
     assert math.isclose(std_T, float(jsdes.OUVESDE()._std(jnp.ones(1))[0]), rel_tol=RTOL)
+
+
+def test_sbve_registry_defaults_and_config():
+    assert "sbve" in sdes.SDERegistry
+    port = sdes.SBVESDE()
+    assert (port.N, port.sampler_type) == (50, "ode")
+    assert port.config_dict() == jsdes.SBVESDE().config_dict()
+
+
+def test_sbve_tables_mean_std_and_sde():
+    """Over t in [1e-4, 1], up to t -> T, where sigma_T^2 - sigma_t^2 cancels
+    unless taken in closed form."""
+    t = np.array([1e-4, 0.03, 0.4, 0.9, 0.999, 0.99999, 1.0], np.float32)
+    shape = (len(t), 1, 4, 3)
+    x0, y = _state(3, shape), _state(4, shape)
+    port, ref = sdes.SBVESDE(k=2.6, c=0.4), jsdes.SBVESDE()
+    tt, jt = torch.from_numpy(t), jnp.asarray(t)
+    got, want = port.sigmas_alphas(tt), ref.sigmas_alphas(jt)
+    assert all(g.dtype == torch.float32 and g.shape == (len(t),) for g in got)
+    for g, w in zip(got, want):
+        _close(g, w)
+    tx0, ty, jx0, jy = torch.from_numpy(x0), torch.from_numpy(y), jnp.asarray(x0), jnp.asarray(y)
+    for g, w in zip(port.marginal_prob(tx0, ty, tt), ref.marginal_prob(jx0, jy, jt)):
+        _close(g, w)
+    _close(port._std(tt), ref._std(jt))
+    for g, w in zip(port.sde(tx0, ty, tt), ref.sde(jx0, jy, jt)):
+        _close(g, w)
+
+
+def test_sbve_prior_is_y():
+    y = torch.from_numpy(_state(6))
+    assert sdes.SBVESDE().prior_sampling(y, torch.Generator().manual_seed(0)) is y
+    assert sdes.SBVESDE().prior_from_noise(torch.zeros_like(y), y) is y
