@@ -37,7 +37,21 @@ passes them all prints the final ``{"ok": true, ...}`` line:
 8. the remaining samplers on a short input with the flagship's weights,
    float32, kernels against plain: the probability-flow ODE by rk4 (N=4) and
    by rk45 (``max_steps`` bounded: random weights make the ODE stiff),
-   euler_maruyama + langevin, and ``--chunk_seconds`` on a 5-s wav.
+   euler_maruyama + langevin, and ``--chunk_seconds`` on a 5-s wav;
+9. training the flagship at the JAX CLI's defaults (B=8, F=T=256, float32,
+   remat off): (a) every kernel call signature of a train step, forward and
+   backward (K1, the K1 adjoint, K2, K2b), kernel against plain in float32
+   and bfloat16, K2 and K2b bit for bit, the library yardsticks checked, and
+   float32 device times per train step; (b) one full-width train step through
+   the kernels and through the plain versions: the loss and every
+   parameter's gradient agree, then its steps/s, peak memory and device
+   breakdown (``nfe_profile.train_step_profile``) with cuDNN's TF32 off and
+   on (PyTorch's default, which (d) and (e) keep); (c) every trainable
+   parameter gets a finite, non-zero gradient through the kernels; (d)
+   ``sgmse_tpu_torch.train.main`` (``python -m sgmse_tpu_torch.train``) on a
+   seeded dataset of 80 train and 2 valid 2.04-s wavs for 10 steps with
+   validation and the evaluation on 2 files, a resume from ``last`` for 2 more,
+   and ``enhance.main --ckpt`` on that checkpoint; (e) 5 steps in bfloat16.
 
 Each entry-point path is driven with the launch counters set to 0 just before
 it and read just after. Details go to ``chiprun_out/chip_smoke.json``.
@@ -67,8 +81,25 @@ TOL = {
     ("upfirdn2d", "bfloat16"): 2.0**-7,
     ("group_norm_act", "bfloat16"): 2.0**-7,
 }
+# The backward kernels: the K1 adjoint as K1; K2b's float32 outputs (dgamma, dbeta, and
+# all of them for float32 inputs) 1e-4, its sums running over up to B*H*W = 524,288
+# terms per channel in another order; any bfloat16 output one bf16 step.
+GRAD_TOL_F32 = {"upfirdn2d_adjoint": 1e-5, "group_norm_act_bwd": 1e-4}
 FORWARD_TOL = 1e-3     # full f32 forward, kernels vs plain, relative to max|plain|
 ENHANCE_TOL = 1e-3     # short f32 enhance, kernels vs plain, relative to max|plain|
+TRAIN_STEP_TOL = 1e-3  # full f32 train step, kernels vs plain: the loss, and each leaf's
+                       # gradient relative to its max|plain|
+KEY_BIAS_TOL = 1e-4    # the attention key biases' gradient, exactly 0 (softmax invariance):
+                       # rounding noise, relative to the largest gradient of the network
+KERNELS = ("upfirdn2d", "upfirdn2d_adjoint", "group_norm_act", "group_norm_act_bwd")
+TRAIN_B = 8
+# Per train step (remat off): K1 on the 12 res-block pairs and 12 pyramid calls, its adjoint
+# on the pairs and the 6 output-pyramid upsamplings (the input pyramid acts on the network
+# input, which needs no gradient), K2 and K2b on every norm.
+TRAIN_LAUNCHES = {"upfirdn2d": 24, "upfirdn2d_adjoint": 18, "group_norm_act": 109,
+                  "group_norm_act_bwd": 109}
+TRAIN_FILES, VALID_FILES, TRAIN_STEPS, RESUME_STEPS, BF16_STEPS = 80, 2, 10, 2, 5
+EVAL_NFE = 60  # the in-training evaluation: PC, N = sde.N = 30, ald
 # Per network evaluation: launches, group_norm_act with/without SiLU, with the pre-bias,
 # parameters. The 48 kHz net keeps the middle block's attention, whose norm has no SiLU.
 NETS = {
@@ -82,8 +113,11 @@ CONFIG_48K = dict(n_fft=1534, hop_length=384, spec_factor=0.065, spec_abs_expone
 RK45_MAX_STEPS = 4
 REPLACES = {
     "upfirdn2d": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
+    "upfirdn2d_adjoint": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
     "group_norm_act": ("sgmse_tpu_torch/csrc/group_norm_act.cu",
                        "sgmse_tpu/models/blocks.py:157"),
+    "group_norm_act_bwd": ("sgmse_tpu_torch/csrc/group_norm_act_bwd.cu",
+                           "sgmse_tpu/models/blocks.py:157"),
 }
 
 
@@ -106,16 +140,28 @@ def counters():
     from sgmse_tpu_torch.ops import group_norm as gn
     from sgmse_tpu_torch.ops import upfirdn2d as ufd
 
-    return {"upfirdn2d": ufd.upfirdn2d_cuda.launches,
-            "group_norm_act": gn.group_norm_act_cuda.launches}
+    k1 = ufd.upfirdn2d_cuda
+    return {"upfirdn2d": k1.launches - k1.adjoint_launches,
+            "upfirdn2d_adjoint": k1.adjoint_launches,
+            "group_norm_act": gn.group_norm_act_cuda.launches,
+            "group_norm_act_bwd": gn.group_norm_act_bwd_cuda.launches}
 
 
 def reset_counters():
     from sgmse_tpu_torch.ops import group_norm as gn
     from sgmse_tpu_torch.ops import upfirdn2d as ufd
 
-    ufd.upfirdn2d_cuda.launches = 0
-    gn.group_norm_act_cuda.launches = 0
+    ufd.upfirdn2d_cuda.launches = ufd.upfirdn2d_cuda.adjoint_launches = 0
+    gn.group_norm_act_cuda.launches = gn.group_norm_act_bwd_cuda.launches = 0
+
+
+def expect(per_call, n=1):
+    """Launch counts of every kernel for ``n`` times ``per_call`` (0 where absent)."""
+    return {k: per_call.get(k, 0) * n for k in KERNELS}
+
+
+def add(*counts):
+    return {k: sum(c[k] for c in counts) for k in KERNELS}
 
 
 def as_tuple(r):
@@ -214,7 +260,7 @@ def network_checks(backbone, dev, report):
         raise AssertionError(f"{backbone}: expected {net['params']} params, got {n_params}")
     if not (torch.isfinite(out_kernel).all() and rel <= FORWARD_TOL):
         raise AssertionError(f"{backbone} forward: kernels vs plain rel err {rel} > {FORWARD_TOL}")
-    expected = (net["launches"], net["silu_split"], net["pre_bias"])
+    expected = (expect(net["launches"]), net["silu_split"], net["pre_bias"])
     if (moved, silu_split, with_bias) != expected:
         raise AssertionError(f"{backbone}: launches per forward {moved}, SiLU split "
                              f"{silu_split}, pre-bias {with_bias}; expected {expected}")
@@ -224,26 +270,281 @@ def network_checks(backbone, dev, report):
     return model, rows
 
 
-def summarize(rows, launches_by_path):
+def summarize(rows, train_rows, launches_by_path):
+    """The kernels line: K1 and K2 per network evaluation of the flagship
+    (bf16 device times, B=4), the backward kernels per train step (float32,
+    B=8); every kernel's per-train-step sums also under ``per_train_step``."""
     from sgmse_tpu_torch import kernel_times as kt
 
     sums = {bb: kt.per_nfe([r for r in rows if "ms" in r and r["backbone"] == bb])
             for bb in NETS}
+    train_sums = kt.per_nfe([r for r in train_rows if "ms" in r])
     out = []
     for name in REPLACES:
-        mine = [r for r in rows if r["name"] == name]
+        mine = [r for r in rows + train_rows if r["name"] == name]
         source, replaces = REPLACES[name]
-        out.append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(path[name] for path in launches_by_path.values()),
             launches_by_path={p: path[name] for p, path in launches_by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine if r["dtype"] == "float32"),
-            max_abs_err_bf16=max(r["max_abs_err"] for r in mine if r["dtype"] == "bfloat16"),
-            # per network evaluation of the flagship, from the bf16 device times
-            **sums["ncsnpp"][name],
-            per_nfe_48k={k: v for k, v in sums["ncsnpp_48k"][name].items()
-                         if k != "library_note"}))
+            max_abs_err_bf16=max(r["max_abs_err"] for r in mine if r["dtype"] == "bfloat16"))
+        per_step = {k: v for k, v in train_sums[name].items() if k != "launches_per_nfe"}
+        per_step["launches_per_train_step"] = train_sums[name]["launches_per_nfe"]
+        if name in sums["ncsnpp"]:  # per network evaluation of the flagship
+            entry.update(sums["ncsnpp"][name], per_train_step=per_step,
+                         per_nfe_48k={k: v for k, v in sums["ncsnpp_48k"][name].items()
+                                      if k != "library_note"})
+        else:  # per train step
+            entry.update(per_step)
+        out.append(entry)
     return out
+
+
+def check_outputs(what, name, got, ref):
+    """Each output of a kernel against the plain version's, with the tolerance
+    of its dtype (GRAD_TOL_F32 / TOL); returns (max |diff|, max |ref|)."""
+    import torch
+
+    errs, scales = [], []
+    for g, r in zip(as_tuple(got), as_tuple(ref)):
+        dt = str(r.dtype).split(".")[-1]
+        tol = TOL[(name, dt)] if name in ("upfirdn2d", "group_norm_act") else (
+            GRAD_TOL_F32[name] if r.dtype == torch.float32 else 2.0**-7)
+        err, scale = rel_check(what, g, r, tol)
+        errs.append(err)
+        scales.append(scale)
+    return max(errs), max(scales)
+
+
+def train_kernel_checks(dev, report):
+    """Phase 9a: every kernel call signature of a full-width train step (B=8),
+    kernel vs plain in float32 and bfloat16, bit-for-bit repeats of K2 and
+    K2b, the library yardsticks, and float32 device times."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt
+
+    model = kt.full_model(dev)
+    reset_counters()
+    fwd, bwd = kt.record_train_calls(model, dev, batch=TRAIN_B)  # through the kernels
+    torch.cuda.synchronize()
+    moved = counters()
+    del model
+    torch.cuda.empty_cache()
+    if moved != TRAIN_LAUNCHES:
+        raise AssertionError(f"train step launches {moved}, expected {TRAIN_LAUNCHES}")
+    counts = kt.per_forward(fwd + bwd)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for (name, sig), per_step in counts.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            case = kt.make_case(name, sig, dtype, dev, gen)
+            what = f"train {name} {case['sig']} {case['dtype']}"
+            got, ref = case["kernel"](), case["plain"]()
+            torch.cuda.synchronize()
+            err, scale = check_outputs(what, name, got, ref)
+            if name.startswith("group_norm_act"):
+                again = case["kernel"]()
+                if not all(torch.equal(a, b) for a, b in zip(as_tuple(got), as_tuple(again))):
+                    raise AssertionError(f"{what}: two runs differ")
+            row = dict(name=name, sig=case["sig"], dtype=case["dtype"], per_forward=per_step,
+                       max_abs_err=err, max_abs_ref=scale)
+            if "library" in case:
+                row["library_err"], _ = check_outputs(f"{what} library", name,
+                                                      case["library"](), case["library_ref"]())
+            if dtype == torch.float32:  # the training dtype of the JAX defaults
+                timed = kt.time_case(case)
+                row.update({k: timed[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "bytes", "ops")})
+            rows.append(row)
+            del case, got, ref
+        torch.cuda.empty_cache()
+    sums = kt.per_nfe([r for r in rows if "ms" in r])
+    print(f"train kernel checks: {len(rows)} passed over {len(counts)} call signatures of a "
+          f"B={TRAIN_B} train step (f32, bf16; K2 and K2b repeat bit for bit; yardsticks "
+          f"agree), launches per step {moved}")
+    for name, v in sums.items():
+        lib = "-" if v["library_ms"] is None else f"{v['library_ms']:.3f}"
+        print(f"  {name:18s} x{v['launches_per_nfe']} per step: f32 device {v['ms']:.3f} ms, "
+              f"plain {v['plain_ms']:.3f}, library {lib}, bound {v['bound_ms']:.3f} "
+              f"({v['bound_by']})")
+    for r in rows:
+        if "ms" in r and r["name"] in ("upfirdn2d_adjoint", "group_norm_act_bwd"):
+            lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"    {r['name']:18s} x{r['per_forward']} {r['sig']}: {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f}")
+    report["train_kernel_checks"] = rows
+    return rows
+
+
+def train_step_checks(dev, report):
+    """Phases 9b and 9c: one full-width float32 train step's loss and gradients
+    through the kernels against the plain versions (same t and z), every
+    trainable parameter's gradient finite and non-zero; then the step's
+    steps/s, peak memory and device breakdown."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt
+    from sgmse_tpu_torch import nfe_profile
+
+    model = kt.full_model(dev).train()
+    x, y, _ = kt.network_inputs(dev, kt.F_BINS, TRAIN_B)
+    rng = np.random.default_rng(SEED + 1)
+    shape = (TRAIN_B, 1, kt.F_BINS, kt.T_FRAMES)
+    t = torch.from_numpy(rng.uniform(0.03, 1.0, TRAIN_B).astype(np.float32)).to(dev)
+    z = torch.from_numpy(((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                          / np.sqrt(2)).astype(np.complex64)).to(dev)
+    names, params = zip(*[(n, p) for n, p in model.dnn.named_parameters() if p.requires_grad])
+    reset_counters()
+    loss = model.step_loss(x, y, t=t, z=z)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    moved = counters()
+    with kt.routed(plain=True):
+        loss_ref = model.step_loss(x, y, t=t, z=z)
+        refs = torch.autograd.grad(loss_ref, params)
+    loss, loss_ref = loss.item(), loss_ref.item()
+    scale = max(r.abs().max().item() for r in refs)
+    worst, key_bias = (0.0, None), 0.0
+    for name, g, r in zip(names, grads, refs):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"train step: gradient of {name} is not finite")
+        if name.endswith("NIN_1.b"):  # exactly zero: rounding noise on both routes
+            key_bias = max(key_bias, g.abs().max().item() / scale, r.abs().max().item() / scale)
+            continue
+        if not g.abs().max().item() > 0:
+            raise AssertionError(f"train step: {name} gets no gradient through the kernels")
+        rel = ((g - r).abs().max() / r.abs().max()).item()
+        worst = max(worst, (rel, name))
+    n_params = sum(p.numel() for p in params)
+    print(f"train step B={TRAIN_B} f32 ({n_params} trainable params in {len(params)} leaves): "
+          f"loss {loss:.6f}, plain {loss_ref:.6f}; worst leaf gradient rel err {worst[0]:.3e} "
+          f"({worst[1]}; bound {TRAIN_STEP_TOL}); key-bias noise {key_bias:.1e} of max|g|; "
+          f"every trainable leaf finite and non-zero through the kernels; launches {moved}")
+    if (abs(loss - loss_ref) > TRAIN_STEP_TOL * abs(loss_ref) or worst[0] > TRAIN_STEP_TOL
+            or key_bias > KEY_BIAS_TOL):
+        raise AssertionError("train step: kernels and plain versions disagree")
+    if moved != TRAIN_LAUNCHES:
+        raise AssertionError(f"train step launches {moved}, expected {TRAIN_LAUNCHES}")
+    del grads, refs
+    torch.cuda.empty_cache()
+    profiles = {}
+    for tf32 in (False, True):  # strict float32, then PyTorch's default for cuDNN
+        torch.backends.cudnn.allow_tf32 = tf32
+        prof = profiles["tf32" if tf32 else "f32"] = nfe_profile.train_step_profile(
+            model, OUT_DIR)
+        print(f"train step profile, cuDNN TF32 {'on' if tf32 else 'off'}: "
+              f"{prof['steps_per_s']:.3f} steps/s, {prof['samples_per_s']:.2f} samples/s "
+              f"(wall {prof['wall_ms']:.1f} ms per step), device busy {prof['busy_ms']:.1f} ms, "
+              f"idle {prof['idle_share_untraced']:.1%} untraced, {prof['launches']:.0f} "
+              f"launches, peak {prof['peak_gib']:.2f} GiB; kinds "
+              + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in prof["kinds"].items()))
+    torch.backends.cudnn.allow_tf32 = False
+    report["train_step"] = dict(loss=loss, loss_plain=loss_ref, worst_leaf=worst,
+                                key_bias_noise=key_bias, launches=moved, profile=profiles)
+    del model
+    torch.cuda.empty_cache()
+
+
+def write_train_set(root: Path):
+    """Seeded clean/noisy pairs of 2.04 s (the 256-frame crop) in the default
+    layout: TRAIN_FILES for training, VALID_FILES for validation."""
+    from sgmse_tpu_torch.data.wav import write_wav
+
+    rng = np.random.default_rng(SEED)
+    n = np.arange(round(WAV_SECONDS * 16000)) / 16000
+    for subset, count in (("train", TRAIN_FILES), ("valid", VALID_FILES)):
+        for kind in ("clean", "noisy"):
+            (root / subset / kind).mkdir(parents=True, exist_ok=True)
+        for i in range(count):
+            f0 = rng.uniform(90.0, 250.0)
+            clean = sum(np.sin(2 * np.pi * f0 * h * n) / h for h in range(1, 8))
+            clean *= 0.5 * (1.0 + np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * n))
+            clean = 0.3 * clean / np.abs(clean).max()
+            noisy = clean + 0.05 * rng.standard_normal(n.shape)
+            write_wav(root / subset / "clean" / f"u{i:03d}.wav", clean.astype(np.float32), 16000)
+            write_wav(root / subset / "noisy" / f"u{i:03d}.wav", noisy.astype(np.float32), 16000)
+
+
+def train_entry_point(tmp: Path, report, launches_by_path):
+    """Phases 9d and 9e: ``train.main`` (``python -m sgmse_tpu_torch.train``) at
+    the JAX defaults, its resume and ``enhance.main --ckpt`` on its checkpoint,
+    then a short bfloat16 run; each with the counters set to 0 just before.
+    They run as a user runs them, with PyTorch's default cuDNN TF32."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _train_entry_point(tmp, report, launches_by_path)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _train_entry_point(tmp: Path, report, launches_by_path):
+    import torch
+    from sgmse_tpu_torch import enhance, train
+
+    root = tmp / "train_set"
+    write_train_set(root)
+    argv = ["--base_dir", str(root), "--log_dir", str(tmp / "train_logs"), "--nolog",
+            "--num_workers", "4"]
+    validation = expect(NETS["ncsnpp"]["launches"], 1 + EVAL_NFE)  # valid loss + eval
+
+    def run(what, extra, steps, valid):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        stats = train.main(argv + extra)
+        launches = counters()
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        losses = [v for _, v in stats["history"]]
+        print(f"{what}: {stats['step']} steps in {stats['fit_s']:.1f} s with validation, "
+              f"peak {stats['peak_gib']:.2f} GiB, losses {[round(v, 3) for v in losses]}, "
+              f"metrics {stats['metrics']}, launches {launches} "
+              f"(per train step {TRAIN_LAUNCHES} x {steps} + validation {valid})")
+        expected = add(expect(TRAIN_LAUNCHES, steps), valid)
+        if launches != expected or len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{what}: launches {launches} (expected {expected}), "
+                                 f"losses {losses}")
+        return dict(stats, launches=launches)
+
+    main_run = run("train entry point", ["--max_steps", str(TRAIN_STEPS), "--num_eval_files",
+                                         str(VALID_FILES)], TRAIN_STEPS, validation)
+    ckpt_dir = Path(main_run["ckpt_dir"])
+    made = sorted(p.name for p in ckpt_dir.iterdir())
+    if made != ["best_pesq", "best_si_sdr", "last"]:
+        raise AssertionError(f"train entry point wrote {made}")
+    logged = [json.loads(line) for line in
+              next((tmp / "train_logs" / "sgmse").glob("version_*/metrics.jsonl"))
+              .read_text().splitlines()]
+    rate = [r["samples_per_sec"] for r in logged if "samples_per_sec" in r]
+    print(f"  logged samples/s over the {TRAIN_STEPS} steps (first step's set-up and the data "
+          f"loading included): {rate}; checkpoints {made}")
+    main_run["logged_samples_per_sec"] = rate
+    resumed = run("train resume", ["--max_steps", str(TRAIN_STEPS + RESUME_STEPS),
+                                   "--num_eval_files", str(VALID_FILES), "--ckpt",
+                                   str(ckpt_dir / "last")], RESUME_STEPS, validation)
+    if not resumed["step"] == resumed["num_updates"] == TRAIN_STEPS + RESUME_STEPS:
+        raise AssertionError(f"resume: step {resumed['step']}, num_updates "
+                             f"{resumed['num_updates']}")
+    reset_counters()
+    out_dir = tmp / "train_enhanced"
+    es = enhance.main(["--test_dir", str(root / "valid" / "noisy"), "--enhanced_dir",
+                       str(out_dir), "--ckpt", str(Path(resumed["ckpt_dir"]) / "last"),
+                       "--batch_size", "2", "--N", "30", "--timeit"])
+    launches = counters()
+    evals = es["nfe"] + es["warmup_nfe"]
+    print(f"enhance --ckpt of the resumed run: {es['files']} files, NFE {es['nfe']} "
+          f"(+{es['warmup_nfe']}), {es['audio_s_per_wall_s']:.3f} audio-s/wall-s, launches "
+          f"{launches}")
+    if (es["files"] != VALID_FILES or not es["all_finite"] or es["nfe"] != EVAL_NFE
+            or launches != expect(NETS["ncsnpp"]["launches"], evals)):
+        raise AssertionError(f"enhance --ckpt: {es}, launches {launches}")
+    bf16 = run("train bf16", ["--max_steps", str(BF16_STEPS), "--num_eval_files", "0",
+                              "--precision", "bfloat16"], BF16_STEPS,
+               expect(NETS["ncsnpp"]["launches"]))
+    launches_by_path.update(train=main_run["launches"], train_resume=resumed["launches"],
+                            train_enhance=launches, train_bf16=bf16["launches"])
+    report["train_entry_point"] = dict(main=main_run, resume=resumed, enhance=es, bf16=bf16)
 
 
 def write_wavs(dirname: Path, sr: int, seconds: float = WAV_SECONDS, n_files: int = B):
@@ -290,7 +591,7 @@ def entry_point(tmp: Path, name: str, argv, sr: int, length: int, nfe: int, per_
                              f"got {[(w.shape, w_sr) for w, w_sr in wavs]}")
     if not stats["all_finite"] or stats["nfe"] != nfe:
         raise AssertionError(f"{name}: finite={stats['all_finite']}, NFE {stats['nfe']} != {nfe}")
-    expected = {k: v * evals for k, v in per_forward.items()}
+    expected = expect(per_forward, evals)
     if launches != expected:
         raise AssertionError(f"{name} launches {launches}, expected {expected}")
     return dict(stats, peak_gib=peak_gib, launches=launches), [w[0] for w, _ in wavs]
@@ -434,7 +735,14 @@ def main():
             "enhance_long of 5 s in 2-s chunks", lambda: model.enhance_long(
                 long_wav, chunk_seconds=2.0, generator=seeded(7), N=5, timeit=True)[:2]))
 
-    summary = summarize(rows, launches_by_path)
+        # --- 9. training ------------------------------------------------------------------
+        del model
+        torch.cuda.empty_cache()
+        train_rows = train_kernel_checks(dev, report)
+        train_step_checks(dev, report)
+        train_entry_point(tmp, report, launches_by_path)
+
+    summary = summarize(rows, train_rows, launches_by_path)
     report["kernels"] = summary
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": summary}))

@@ -2,9 +2,11 @@
 
 Score-based generative speech enhancement in the complex STFT domain, ported
 slice by slice from the JAX package ``sgmse_tpu``, which stays the reference.
-This slice covers the 16 kHz enhancement path: STFT prep, the
-predictor-corrector sampler on the OUVE SDE, the NCSN++ score network with
-hand-written Hopper kernels for upfirdn2d and GroupNorm+SiLU, and the iSTFT.
+Ported so far: enhancement (``python -m sgmse_tpu_torch.enhance``) with the
+16 kHz SGMSE+ model, the Schroedinger bridge and the 48 kHz model and every
+sampler, and single-GPU training (``python -m sgmse_tpu_torch.train``); the
+NCSN++ score network runs on hand-written Hopper kernels for upfirdn2d and
+GroupNorm+SiLU, forward and backward.
 
 Imports torch, numpy and scipy only; never jax or sgmse_tpu.
 """

@@ -46,6 +46,11 @@
 //     the part pass 1 read last and so likeliest still in the 50 MB L2.
 // A block that cannot be co-resident makes cudaLaunchCooperativeKernel fail;
 // the wrapper raises. There is no multi-pass fallback.
+//
+// Under training the same launch also writes each (b, group)'s float32
+// (mean, variance before the clamp at 0) to `stats`, which the backward
+// (K2b, group_norm_act_bwd.cu) reads; at inference `stats` is null and the
+// launch does what it did before.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -66,6 +71,7 @@ struct GnArgs {
   const float* gamma;
   const float* beta;
   const void* bias;   // (B, C) in the input dtype, or null
+  float2* stats;      // (B, G) (mean, unclamped variance) out, or null
   float2* partial;    // (B * nb, G) per-block (sum, sum of squares)
   int HW, C, G;
   int nb;         // blocks per batch row
@@ -189,8 +195,13 @@ __global__ void __launch_bounds__(kThreads, 1) gn_act_kernel(const GnArgs a) {
       ss += t.y;
     }
     const double mean = s * inv_count;
-    const double var = fmax(ss * inv_count - mean * mean, 0.0);
+    const double var_raw = ss * inv_count - mean * mean;
+    const double var = fmax(var_raw, 0.0);
     stats[g] = make_float2(static_cast<float>(mean), rsqrtf(static_cast<float>(var) + a.eps));
+    if (a.stats && blockIdx.x % a.nb == 0) {
+      a.stats[static_cast<size_t>(b) * a.G + g] =
+          make_float2(static_cast<float>(mean), static_cast<float>(var_raw));
+    }
   }
   __syncthreads();
   if (!active) return;
@@ -270,19 +281,21 @@ cudaError_t launch(const GnArgs& args, int B, int blocks_cap, void* stream) {
 
 // x, y: device pointers, channels_last (B, C, H, W), float32 (is_bf16 == 0) or
 // bfloat16, 16-byte aligned. gamma, beta: float32 (C,). bias: (B, C) in x's
-// dtype, or null. partial: float32 scratch of partial_blocks * G * 2, partial_blocks >= B
-// times the blocks per row the launch picks (at most the SM count / B). C must
-// be a multiple of 8 (bfloat16) or 4 (float32), with at most 512 vectors of 16
-// bytes per pixel, and a multiple of G. Returns the launch's error code.
+// dtype, or null. stats: float32 (B, G, 2) out, or null. partial: float32
+// scratch of partial_blocks * G * 2, partial_blocks >= B times the blocks per
+// row the launch picks (at most the SM count / B). C must be a multiple of 8
+// (bfloat16) or 4 (float32), with at most 512 vectors of 16 bytes per pixel,
+// and a multiple of G. Returns the launch's error code.
 extern "C" int sgmse_group_norm_act(const void* x, void* y, const float* gamma, const float* beta,
-                                    const void* bias, void* partial, int partial_blocks, int B,
-                                    int HW, int C, int G, float eps, int silu, int is_bf16,
-                                    void* stream) {
+                                    const void* bias, void* stats, void* partial,
+                                    int partial_blocks, int B, int HW, int C, int G, float eps,
+                                    int silu, int is_bf16, void* stream) {
   const int n = is_bf16 ? 8 : 4;
   if (B < 1 || HW < 1 || G < 1 || C % n != 0 || C / n > kThreads || C % G != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  GnArgs a{x, y, gamma, beta, bias, static_cast<float2*>(partial), HW, C, G, 0, 0, 0, eps, silu};
+  GnArgs a{x, y, gamma, beta, bias, static_cast<float2*>(stats), static_cast<float2*>(partial),
+           HW, C, G, 0, 0, 0, eps, silu};
   cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(a, B, partial_blocks, stream)
                             : launch<float>(a, B, partial_blocks, stream);
   if (err == cudaSuccess) err = cudaGetLastError();

@@ -197,6 +197,11 @@ class SpecTransform:
     def num_freqs(self) -> int:
         return self.n_fft // 2 + 1
 
+    @property
+    def target_len(self) -> int:
+        """Training crop length in samples."""
+        return (self.num_frames - 1) * self.hop_length
+
     def config_dict(self) -> dict:
         return dict(
             n_fft=self.n_fft,

@@ -1,16 +1,19 @@
 """Enhancement entry point of the PyTorch port: enhance every wav in a directory.
 
     python -m sgmse_tpu_torch.enhance --test_dir noisy/ --enhanced_dir out/ \\
-        --weights model.npz [--config config.json | --nf 128 --ch_mult 1 1 2 2 2 2 2 ...] \\
+        (--ckpt DIR | --weights model.npz [--config config.json | --nf 128 ...]) \\
         [--sampler_type pc --N 30 --corrector ald --snr 0.5 --chunk_seconds S] \\
         [--batch_size 4 --precision bfloat16 --timeit]
 
-Counterpart of ``cli/enhance.py``. Weights come from an ``.npz`` of the JAX
-parameter tree (``convert.save_npz``), in place of an Orbax checkpoint. The
-model is the JAX ``ScoreModel.config_dict()`` given as ``--config`` (the
-``config.json`` of a JAX checkpoint: backbone, SDE, STFT constants,
-preconditioning), or, without it, the flagship ``ncsnpp`` + OUVE built from
-the model flags (which ``--config`` overrides, apart from ``--precision``).
+Counterpart of ``cli/enhance.py``. ``--ckpt`` takes a checkpoint of the
+port's training (``python -m sgmse_tpu_torch.train``): its EMA weights and
+its embedded ``config.json``, as the JAX CLI's ``--ckpt`` takes an Orbax one.
+Otherwise weights come from an ``.npz`` of the JAX parameter tree
+(``convert.save_npz``), and the model is the JAX ``ScoreModel.config_dict()``
+given as ``--config`` (the ``config.json`` of a JAX checkpoint: backbone,
+SDE, STFT constants, preconditioning), or, without it, the flagship
+``ncsnpp`` + OUVE built from the model flags (which ``--config`` overrides,
+apart from ``--precision``, which also overrides a checkpoint's).
 The backbone sets the sample rate and the pad mode (``utils.inference``).
 ``--sampler_type`` follows the JAX CLI: ``pc`` or ``ode`` on OUVE; on SBVE the
 Schroedinger bridge, ``ode`` (``pc`` maps to it) or ``sde``, over the SDE's own
@@ -36,7 +39,7 @@ from os.path import dirname, join
 import numpy as np
 import torch
 
-from . import convert
+from . import checkpoint, convert
 from .data.wav import read_wav, resample, write_wav
 from .model import ScoreModel
 from .models.ncsnpp import NCSNpp
@@ -49,7 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Directory containing the noisy wavs")
     parser.add_argument("--enhanced_dir", type=str, required=True,
                         help="Directory to write the enhanced wavs")
-    parser.add_argument("--weights", type=str, required=True,
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--ckpt", type=str, default=None,
+                        help="Checkpoint directory of the port's training (EMA weights and "
+                             "its config.json)")
+    source.add_argument("--weights", type=str, default=None,
                         help=".npz of the JAX parameter tree (convert.save_npz)")
     parser.add_argument("--config", type=str, default=None,
                         help="JSON of the JAX ScoreModel.config_dict() (a JAX checkpoint's "
@@ -106,7 +113,11 @@ def _chunks(items, batch_size: int, hop: int):
 
 
 def build_model(args) -> ScoreModel:
-    """The model of ``--config`` (or of the flagship flags) with ``--weights``."""
+    """The model of ``--ckpt``, or of ``--config`` (or of the flagship flags)
+    with ``--weights``."""
+    if args.ckpt is not None:
+        precision = {} if args.precision is None else {"precision": args.precision}
+        return checkpoint.load_score_model(args.ckpt, t_eps=args.t_eps, **precision)
     if args.config is not None:
         with open(args.config) as f:
             cfg = json.load(f)

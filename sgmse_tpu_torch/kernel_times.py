@@ -1,6 +1,7 @@
 """Device time of the port's kernels at every shape of the full-width main path.
 
     python -m sgmse_tpu_torch.kernel_times [--backbone ncsnpp_48k] [--out FILE]
+    python -m sgmse_tpu_torch.kernel_times --train [--out FILE]
     python sgmse_tpu_torch/kernel_times.py --root DIR [--out FILE]
 
 Records the calls that one evaluation of a full-width NCSN++ (seeded weights,
@@ -21,8 +22,14 @@ times:
   67 TFLOP/s, the H100 SXM's published peaks.
 
 Per network evaluation, each is the sum over signatures of its time times the
-signature's calls per evaluation. Prints one JSON line (and writes it to
-``--out``). With ``--root``, the ``sgmse_tpu_torch`` of checkout DIR is timed
+signature's calls per evaluation. With ``--train`` the calls are those of one
+train step of the flagship at the JAX defaults (B=8, F=T=256, float32, remat
+off), forward and backward: K1 and K2 forward, the K1 adjoint
+(``upfirdn2d_adjoint``, yardstick cuDNN's depthwise convolution
+backward-input) and K2b (``group_norm_act_bwd``, yardstick
+``aten.native_group_norm_backward``: GroupNorm only, on NCHW copies, as
+autograd hands them to it), timed in float32, per train step. Prints one JSON
+line (and writes it to ``--out``). With ``--root``, the ``sgmse_tpu_torch`` of checkout DIR is timed
 in place of this one, so that another commit's kernels (unpacked with
 ``git archive``) are measured by the same code; the library yardsticks are
 never called by the port. ``chip_smoke.py`` uses the same functions.
@@ -42,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 B, F_BINS, T_FRAMES = 4, 256, 256  # four 2.04-s utterances
+TRAIN_B = 8  # the JAX training CLI's default batch
 # Frequency bins of each backbone's full-width input: n_fft 510 at 16 kHz, 1534 at 48 kHz.
 BINS = {"ncsnpp": F_BINS, "ncsnpp_48k": 768}
 SEED = 0
@@ -54,6 +62,13 @@ K2_LIBRARY_NOTE = ("F.group_norm: the same function on the calls without SiLU an
 K1_LIBRARY_NOTE = ("depthwise cuDNN: F.conv2d(stride 2, padding 1, groups C) with the "
                    "flipped FIR for down, F.conv_transpose2d(stride 2, padding 1, "
                    "groups C) with the FIR for up; one call per tensor of a pair")
+K1_ADJOINT_LIBRARY_NOTE = ("depthwise cuDNN backward-input (aten.convolution_backward, "
+                           "input mask only) of the K1 yardstick's convolution; one call "
+                           "per tensor of a pair")
+K2B_LIBRARY_NOTE = ("aten.native_group_norm_backward on NCHW copies: GroupNorm only (no "
+                    "SiLU, no pre-bias), dx, dgamma and dbeta")
+LIBRARY_NOTES = {"upfirdn2d": K1_LIBRARY_NOTE, "upfirdn2d_adjoint": K1_ADJOINT_LIBRARY_NOTE,
+                 "group_norm_act": K2_LIBRARY_NOTE, "group_norm_act_bwd": K2B_LIBRARY_NOTE}
 
 
 def ops_modules():
@@ -66,11 +81,14 @@ def ops_modules():
 def routed(calls=None, plain=False):
     """Route the network's kernel dispatchers through a recorder of their call
     signatures (appended to ``calls``) and, with ``plain``, to the plain
-    versions. Works for checkouts with and without the pair launch and the
-    pre-bias."""
+    versions (autograd then differentiates the plain versions). The backward
+    dispatchers are recorded too: K2b as ``group_norm_act_bwd``, the K1
+    adjoint as an ``upfirdn2d`` call after the forward's. Works for checkouts
+    with and without the pair launch, the pre-bias and the backward kernels."""
     gn, ufd = ops_modules()
     orig = {"gn": gn.group_norm_act, "u": ufd.upfirdn2d,
-            "pair": getattr(ufd, "upfirdn2d_pair", None)}
+            "pair": getattr(ufd, "upfirdn2d_pair", None),
+            "bwd": getattr(gn, "group_norm_act_bwd", None)}
 
     def taps(kernel):
         return tuple(float(v) for v in np.asarray(kernel, np.float32).ravel())
@@ -94,15 +112,26 @@ def routed(calls=None, plain=False):
         return (ufd.upfirdn2d_pair_plain if plain else orig["pair"])(x0, x1, kernel, up, down,
                                                                      pad)
 
+    def group_norm_act_bwd(dy, x, gamma, beta, stats, num_groups, eps=1e-6, silu=True,
+                           pre_bias=None):
+        if calls is not None:
+            calls.append(("group_norm_act_bwd", (tuple(x.shape), num_groups, eps, bool(silu),
+                                                 pre_bias is not None)))
+        return orig["bwd"](dy, x, gamma, beta, stats, num_groups, eps, silu, pre_bias)
+
     gn.group_norm_act, ufd.upfirdn2d = group_norm_act, upfirdn2d
     if orig["pair"] is not None:
         ufd.upfirdn2d_pair = upfirdn2d_pair
+    if orig["bwd"] is not None:
+        gn.group_norm_act_bwd = group_norm_act_bwd
     try:
         yield calls
     finally:
         gn.group_norm_act, ufd.upfirdn2d = orig["gn"], orig["u"]
         if orig["pair"] is not None:
             ufd.upfirdn2d_pair = orig["pair"]
+        if orig["bwd"] is not None:
+            gn.group_norm_act_bwd = orig["bwd"]
 
 
 def full_model(dev, precision="float32", backbone="ncsnpp"):
@@ -116,12 +145,12 @@ def full_model(dev, precision="float32", backbone="ncsnpp"):
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 
-def network_inputs(dev, f_bins=F_BINS):
+def network_inputs(dev, f_bins=F_BINS, batch=B):
     rng = np.random.default_rng(SEED)
-    shape = (B, 1, f_bins, T_FRAMES)
+    shape = (batch, 1, f_bins, T_FRAMES)
     cplx = lambda: (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * 0.3
     x, y = cplx().astype(np.complex64), cplx().astype(np.complex64)
-    t = rng.uniform(0.03, 1.0, (B,)).astype(np.float32)
+    t = rng.uniform(0.03, 1.0, (batch,)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(dev) for a in (x, y, t))
 
 
@@ -134,7 +163,7 @@ def per_forward(calls):
 
 
 def label(name, sig):
-    if name == "upfirdn2d":
+    if name.startswith("upfirdn2d"):
         shape, up, down, pad, _, n = sig
         return f"{shape} up={up} down={down} pad={pad}" + (" pair" if n == 2 else "")
     shape, groups, _, silu, bias = sig
@@ -154,7 +183,7 @@ def make_case(name, sig, dtype, dev, gen):
 
     case = dict(name=name, sig=label(name, sig), dtype=str(dtype).split(".")[-1])
     esize = torch.empty((), dtype=dtype).element_size()
-    if name == "upfirdn2d":
+    if name.startswith("upfirdn2d"):
         _, up, down, pad, taps, n = sig
         xs = [rand(*shape) for _ in range(n)]
         k = np.asarray(taps, np.float32).reshape(4, 4)
@@ -165,17 +194,28 @@ def make_case(name, sig, dtype, dev, gen):
             case["kernel"] = lambda: ufd.upfirdn2d_cuda(xs[0], k, up, down, pad)
         case["plain"] = lambda: tuple(ufd.upfirdn2d_plain(x, k_dev, up, down, pad) for x in xs)
         c = shape[1]
-        if (up, down, tuple(pad)) == (1, 2, (1, 1)):
-            w = torch.flip(k_dev, [0, 1])[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
-            case["library"] = lambda: tuple(F.conv2d(x, w, stride=2, padding=1, groups=c)
-                                            for x in xs)
-        elif (up, down, tuple(pad)) == (2, 1, (2, 1)):
-            w = k_dev[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
-            case["library"] = lambda: tuple(F.conv_transpose2d(x, w, stride=2, padding=1,
-                                                               groups=c) for x in xs)
+        oh, ow = (ufd._out_size(n_in, 4, up, down, *pad) for n_in in shape[2:])
+        if name == "upfirdn2d":
+            if (up, down, tuple(pad)) == (1, 2, (1, 1)):
+                w = torch.flip(k_dev, [0, 1])[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
+                case["library"] = lambda: tuple(F.conv2d(x, w, stride=2, padding=1, groups=c)
+                                                for x in xs)
+            elif (up, down, tuple(pad)) == (2, 1, (2, 1)):
+                w = k_dev[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
+                case["library"] = lambda: tuple(F.conv_transpose2d(x, w, stride=2, padding=1,
+                                                                   groups=c) for x in xs)
+        else:  # the adjoint of the yardstick's convolution: its backward-input
+            transposed = (up, down, tuple(pad)) == (1, 2, (1, 1))  # adjoint of an upsample
+            if transposed or (up, down, tuple(pad)) == (2, 1, (2, 1)):
+                fir = torch.flip(k_dev, [0, 1]) if transposed else k_dev
+                w = fir[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
+                like = torch.empty((shape[0], c, oh, ow), dtype=dtype, device=dev).contiguous(
+                    memory_format=torch.channels_last)
+                case["library"] = lambda: tuple(torch.ops.aten.convolution_backward(
+                    x, like, w, None, [2, 2], [1, 1], [1, 1], transposed, [0, 0], c,
+                    [True, False, False])[0] for x in xs)
         case["library_ref"] = case["plain"]
-        out_elems = shape[0] * c * ((shape[2] * up + sum(pad) - 4) // down + 1) * \
-            ((shape[3] * up + sum(pad) - 4) // down + 1)
+        out_elems = shape[0] * c * oh * ow
         taps_per_out = 16 // (up * up)
         case["bytes"] = n * (np.prod(shape) + out_elems) * esize
         case["ops"] = n * out_elems * taps_per_out * 2
@@ -185,19 +225,54 @@ def make_case(name, sig, dtype, dev, gen):
         x = rand(*shape)
         gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
         beta = 0.1 * torch.randn(c, generator=gen, device=dev)
-        extra = (0.1 * rand(b, c),) if has_bias else ()
-        case["kernel"] = lambda: gn.group_norm_act_cuda(x, gamma, beta, groups, eps, silu, *extra)
-        case["plain"] = lambda: gn.group_norm_act_plain(x, gamma, beta, groups, eps, silu, *extra)
+        pre_bias = 0.1 * rand(b, c) if has_bias else None
+        extra = (pre_bias,) if has_bias else ()
+        n_el = int(np.prod(shape))
         # F.group_norm takes its affine in x's dtype; its plain reference gets the same values.
         gamma_l, beta_l = gamma.to(dtype), beta.to(dtype)
-        case["library"] = lambda: F.group_norm(x, groups, gamma_l, beta_l, eps)
-        case["library_ref"] = lambda: gn.group_norm_act_plain(x, gamma_l.float(), beta_l.float(),
-                                                              groups, eps, False)
+        if name == "group_norm_act":
+            case["kernel"] = lambda: gn.group_norm_act_cuda(x, gamma, beta, groups, eps, silu,
+                                                            *extra)
+            case["plain"] = lambda: gn.group_norm_act_plain(x, gamma, beta, groups, eps, silu,
+                                                            *extra)
+            case["library"] = lambda: F.group_norm(x, groups, gamma_l, beta_l, eps)
+            case["library_ref"] = lambda: gn.group_norm_act_plain(x, gamma_l.float(),
+                                                                  beta_l.float(), groups, eps,
+                                                                  False)
+            case["bytes"] = 2 * n_el * esize + 2 * c * 4 + (b * c * esize if has_bias else 0)
+            # sums (add, fma), normalise (sub, mul, add), bias add, SiLU (exp, add, div)
+            case["ops"] = n_el * (5 + int(has_bias) + (3 if silu else 0))
+        else:  # group_norm_act_bwd
+            dy = rand(*shape)
+            _, stats = gn.group_norm_act_plain(x, gamma, beta, groups, eps, silu, pre_bias,
+                                               return_stats=True)
+            args = (dy, x, gamma, beta, stats, groups, eps, silu, pre_bias)
+            some = lambda out: tuple(t for t in out if t is not None)
+            case["kernel"] = lambda: some(gn.group_norm_act_bwd_cuda(*args))
+            case["plain"] = lambda: some(gn.group_norm_act_bwd_plain(*args))
+            xl, dyl = x.contiguous(), dy.contiguous()  # NCHW, as autograd hands them over
+            hw = n_el // (b * c)
+            _, mean, rstd = torch.ops.aten.native_group_norm(xl, gamma_l, beta_l, b, c, hw,
+                                                             groups, eps)
+            case["library"] = lambda: torch.ops.aten.native_group_norm_backward(
+                dyl, xl, mean, rstd, gamma_l, b, c, hw, groups, [True, True, True])
+            _, stats_l = gn.group_norm_act_plain(x, gamma_l.float(), beta_l.float(), groups, eps,
+                                                 False, return_stats=True)
+
+            def library_ref():
+                dx, dg, db, _ = gn.group_norm_act_bwd_plain(dy, x, gamma_l.float(),
+                                                            beta_l.float(), stats_l, groups,
+                                                            eps, False)
+                return dx.contiguous(), dg.to(dtype), db.to(dtype)
+
+            case["library_ref"] = library_ref
+            # read x and dy, write dx; gamma, beta, stats in; dgamma, dbeta (and the
+            # pre-bias and its gradient) in and out
+            case["bytes"] = (3 * n_el * esize + 4 * c * 4 + b * groups * 2 * 4
+                             + (2 * b * c * esize if has_bias else 0))
+            # x^ and dv (and its SiLU) in each of the two passes, the sums, then dx
+            case["ops"] = n_el * (13 + (16 if silu else 0) + (2 if has_bias else 0))
         case["library_same_function"] = not silu and not has_bias
-        n_el = int(np.prod(shape))
-        case["bytes"] = 2 * n_el * esize + 2 * c * 4 + (b * c * esize if has_bias else 0)
-        # sums (add, fma), normalise (sub, mul, add), bias add, SiLU (exp, add, div)
-        case["ops"] = n_el * (5 + int(has_bias) + (3 if silu else 0))
     bytes_ms = case["bytes"] / PEAK_BYTES_PER_S * 1e3
     ops_ms = case["ops"] / PEAK_F32_FLOPS * 1e3
     case["bytes"], case["ops"] = int(case["bytes"]), int(case["ops"])
@@ -250,6 +325,24 @@ def record_calls(dev, backbone="ncsnpp"):
     return calls, out, model
 
 
+def record_train_calls(model, dev, f_bins=F_BINS, frames=T_FRAMES, batch=TRAIN_B):
+    """The kernel-dispatcher calls of one train step of ``model`` (its forward
+    in train mode with remat off, then the backward of a loss on its output),
+    on the dispatchers' own route: (forward calls, backward calls), the
+    backward's upfirdn2d calls renamed ``upfirdn2d_adjoint``."""
+    model.train()
+    x, y, t = network_inputs(dev, f_bins, batch)
+    x, y = x[..., :frames], y[..., :frames]
+    params = [p for p in model.parameters() if p.requires_grad]
+    with routed(calls=[]) as calls:
+        out = model.dnn(x, y, t)
+        n_fwd = len(calls)
+        torch.autograd.grad(out.abs().square().mean(), params)
+    bwd = [("upfirdn2d_adjoint" if name == "upfirdn2d" else name, sig)
+           for name, sig in calls[n_fwd:]]
+    return calls[:n_fwd], bwd
+
+
 def per_nfe(rows) -> dict:
     """Per kernel, per network evaluation: the sums over its timed signatures of
     each time x the signature's ``per_forward`` calls (each one launch)."""
@@ -265,7 +358,7 @@ def per_nfe(rows) -> dict:
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=(None if any(r["library_ms"] is None for r in mine)
                         else total("library_ms")),
-            library_note=K1_LIBRARY_NOTE if name == "upfirdn2d" else K2_LIBRARY_NOTE)
+            library_note=LIBRARY_NOTES[name])
     return out
 
 
@@ -281,6 +374,9 @@ def main(argv=None) -> dict:
                         help="checkout whose sgmse_tpu_torch to time (default: this one)")
     parser.add_argument("--backbone", choices=sorted(BINS), default="ncsnpp",
                         help="whose full-width call signatures to time")
+    parser.add_argument("--train", action="store_true",
+                        help="time the calls of one flagship train step (B=8, float32), "
+                             "forward and backward, per step")
     parser.add_argument("--out", type=str, default=None, help="also write the JSON here")
     args = parser.parse_args(argv)
     if args.root:
@@ -289,14 +385,23 @@ def main(argv=None) -> dict:
         raise RuntimeError("kernel_times runs on the card only")
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    calls, _, model = record_calls(dev, args.backbone)
-    del model
-    counts = per_forward(calls)
+    if args.train:
+        fwd, bwd = record_train_calls(full_model(dev), dev)
+        counts, dtype = per_forward(fwd + bwd), torch.float32
+    else:
+        calls, _, model = record_calls(dev, args.backbone)
+        del model
+        counts, dtype = per_forward(calls), torch.bfloat16
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = [dict(time_case(make_case(*key, torch.bfloat16, dev, gen)), per_forward=n)
+    rows = [dict(time_case(make_case(*key, dtype, dev, gen)), per_forward=n)
             for key, n in counts.items()]
     result = dict(card=card(), root=args.root or ".", backbone=args.backbone,
-                  per_nfe=per_nfe(rows), shapes=rows)
+                  shapes=rows)
+    if args.train:
+        result.update(batch=TRAIN_B, dtype="float32", per_train_step=per_nfe(rows))
+    else:
+        result["per_nfe"] = per_nfe(rows)
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -100,8 +100,10 @@ def lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     handle.sgmse_upfirdn2d.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, i, i, p]
     handle.sgmse_upfirdn2d.restype = i
-    handle.sgmse_group_norm_act.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
+    handle.sgmse_group_norm_act.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
     handle.sgmse_group_norm_act.restype = i
+    handle.sgmse_group_norm_act_bwd.argtypes = [p] * 12 + [i] * 5 + [f, i, i, p]
+    handle.sgmse_group_norm_act_bwd.restype = i
     handle.sgmse_error_string.argtypes = [i]
     handle.sgmse_error_string.restype = ctypes.c_char_p
     return handle

@@ -1,7 +1,6 @@
 """ScoreModel: owns backbone + SDE + DSP transform; the forward contracts, the
-preconditioning and the one-call ``enhance`` pipeline. Counterpart of
-``sgmse_tpu/model.py`` for inference (training, its losses and
-``enhance_eval`` are not ported).
+preconditioning, the training losses and the one-call ``enhance`` pipeline.
+Counterpart of ``sgmse_tpu/model.py``.
 
 Forward contracts, as in the JAX package:
 
@@ -11,9 +10,17 @@ Forward contracts, as in the JAX package:
   and ``denoiser``, and the clean state for ``data_prediction`` (what the
   Schroedinger-bridge sampler calls).
 
+Losses, as in the JAX package: ``score_matching`` (sigma^2 weighting),
+``denoiser`` (weightings 1, sigma^2, edm; the edm weighting as intended, not
+the reference's broadcast bug) and ``data_prediction`` (TF-MSE plus
+``l1_weight`` times the time-domain L1 through the differentiable iSTFT). The
+PESQ loss term (``pesq_weight`` > 0) is not ported yet.
+
 Unlike the JAX package, parameters live in the module (``self.dnn``), as
 PyTorch has it; ``init_params(generator)`` draws them from an explicit
-generator, and ``convert.params_from_jax`` loads the JAX package's.
+generator, and ``convert.params_from_jax`` loads the JAX package's. Dropout
+is on in ``train()`` mode and off in ``eval()`` mode, where the JAX package
+passes ``train=``.
 """
 from __future__ import annotations
 
@@ -30,13 +37,10 @@ import torch.nn as nn
 from . import sampling
 from .dsp import SpecTransform, pad_spec
 from .models import BackboneRegistry
-from .sdes import SDERegistry
+from .sdes import SDERegistry, crandn
 
 _SPEC_KEYS = ("n_fft", "hop_length", "window", "transform_type", "spec_factor",
               "spec_abs_exponent", "num_frames")
-# Training-only settings of a JAX checkpoint's config: kept for config_dict, unused.
-_TRAINING_DEFAULTS = dict(lr=1e-4, ema_decay=0.999, num_eval_files=20,
-                          loss_weighting="sigma^2", l1_weight=0.001, pesq_weight=0.0)
 PORTED = {"backbone": ("ncsnpp", "ncsnpp_v2", "ncsnpp_48k"), "sde": ("ouve", "sbve")}
 
 
@@ -69,20 +73,56 @@ class ScoreModel(nn.Module):
 
     Construction mirrors the JAX ``ScoreModel``: backbone/sde names select
     registry classes, and the remaining kwargs are routed to whichever of the
-    backbone, the SDE and the STFT transform declares them. Training-only
-    kwargs are accepted, kept for :meth:`config_dict` and otherwise ignored.
+    backbone, the SDE and the STFT transform declares them.
     """
 
-    def __init__(self, backbone: str = "ncsnpp", sde: str = "ouve", t_eps: float = 0.03,
-                 loss_type: str = "score_matching", network_scaling: Optional[str] = None,
-                 c_in: str = "1", c_out: str = "1", c_skip: str = "0",
-                 sigma_data: float = 0.1, sr: int = 16000, spec: Optional[SpecTransform] = None,
-                 **kwargs):
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--lr", type=float, default=1e-4,
+                            help="The learning rate (1e-4 by default)")
+        parser.add_argument("--ema_decay", type=float, default=0.999,
+                            help="The parameter EMA decay constant (0.999 by default)")
+        parser.add_argument("--t_eps", type=float, default=0.03,
+                            help="The minimum process time (0.03 by default)")
+        parser.add_argument("--num_eval_files", type=int, default=20,
+                            help="Number of files for speech enhancement performance "
+                                 "evaluation during training.")
+        parser.add_argument("--loss_type", type=str, default="score_matching",
+                            help="The type of loss function to use.")
+        parser.add_argument("--loss_weighting", type=str, default="sigma^2",
+                            help="The weighting of the loss function.")
+        parser.add_argument("--network_scaling", type=str, default=None,
+                            help="The type of network output scaling to use.")
+        parser.add_argument("--c_in", type=str, default="1", help="The input scaling for x.")
+        parser.add_argument("--c_out", type=str, default="1", help="The output scaling.")
+        parser.add_argument("--c_skip", type=str, default="0",
+                            help="The skip connection scaling.")
+        parser.add_argument("--sigma_data", type=float, default=0.1,
+                            help="The data standard deviation.")
+        parser.add_argument("--l1_weight", type=float, default=0.001,
+                            help="The balance between the time-frequency and time-domain "
+                                 "losses.")
+        parser.add_argument("--pesq_weight", type=float, default=0.0,
+                            help="The weight of the PESQ loss term (not ported yet: > 0 "
+                                 "raises in the loss).")
+        parser.add_argument("--sr", type=int, default=16000,
+                            help="The sample rate of the audio files.")
+        return parser
+
+    def __init__(self, backbone: str = "ncsnpp", sde: str = "ouve", lr: float = 1e-4,
+                 ema_decay: float = 0.999, t_eps: float = 0.03, num_eval_files: int = 20,
+                 loss_type: str = "score_matching", loss_weighting: str = "sigma^2",
+                 network_scaling: Optional[str] = None, c_in: str = "1", c_out: str = "1",
+                 c_skip: str = "0", sigma_data: float = 0.1, l1_weight: float = 0.001,
+                 pesq_weight: float = 0.0, sr: int = 16000,
+                 spec: Optional[SpecTransform] = None, **kwargs):
         super().__init__()
         if backbone not in PORTED["backbone"] or sde not in PORTED["sde"]:
             raise NotImplementedError(f"backbone {backbone!r} with sde {sde!r} is not "
                                       f"ported yet (ported: {PORTED})")
-        self.train_config = {k: kwargs.pop(k, v) for k, v in _TRAINING_DEFAULTS.items()}
+        self.lr, self.ema_decay, self.num_eval_files = lr, ema_decay, num_eval_files
+        self.loss_weighting, self.l1_weight, self.pesq_weight = (loss_weighting, l1_weight,
+                                                                 pesq_weight)
         self.backbone = backbone
         dnn_cls = BackboneRegistry.get_by_name(backbone)
         self.dnn = dnn_cls(**_filter_kwargs(dnn_cls, kwargs))
@@ -138,17 +178,18 @@ class ScoreModel(nn.Module):
         raise ValueError(f"Invalid c_skip type: {self.c_skip_type}")
 
     # --- forward contracts ---------------------------------------------------------------
-    def forward(self, x_t, y, t):
+    def forward(self, x_t, y, t, generator: Optional[torch.Generator] = None):
         """The score (or, for ``ncsnpp_v2`` with ``data_prediction``, the clean
-        state) at (x_t, y, t)."""
+        state) at (x_t, y, t). ``generator`` draws dropout masks in ``train()``
+        mode."""
         if self.backbone != "ncsnpp_v2":
-            return -self.dnn(x_t, y, t)
+            return -self.dnn(x_t, y, t, generator)
         c_in = self._c_in(t)
         if not isinstance(c_in, float):  # 1.0: the identity, skipped
             x_t_in, y_in = c_in * x_t, c_in * y
         else:
             x_t_in, y_in = x_t, y
-        out = self.dnn(x_t_in, y_in, t)
+        out = self.dnn(x_t_in, y_in, t, generator)
         if self.network_scaling == "1/sigma":
             out = out / _bcast(self.sde._std(t))
         elif self.network_scaling == "1/t":
@@ -165,6 +206,59 @@ class ScoreModel(nn.Module):
     def score_fn(self):
         """score_fn(x, y, t) for the samplers."""
         return self.forward
+
+    # --- losses ------------------------------------------------------------------------
+    def _loss(self, forward_out, x_t, z, t, mean, x):
+        sigma = _bcast(self.sde._std(t))
+
+        def _sum_mean(losses):
+            return torch.mean(0.5 * torch.sum(losses.reshape(losses.shape[0], -1), dim=-1))
+
+        if self.loss_type == "score_matching":
+            if self.loss_weighting != "sigma^2":
+                raise ValueError("Invalid loss weighting for loss_type=score_matching: "
+                                 f"{self.loss_weighting}")
+            return _sum_mean(torch.abs(forward_out * sigma + z) ** 2)  # Eq. (7)
+        elif self.loss_type == "denoiser":
+            d = forward_out * sigma**2 + x_t  # Eq. (10)
+            losses = torch.abs(d - mean) ** 2  # Eq. (8)
+            if self.loss_weighting == "1":
+                pass
+            elif self.loss_weighting == "sigma^2":
+                losses = losses * sigma**2
+            elif self.loss_weighting == "edm":
+                losses = (sigma**2 + self.sigma_data**2) / ((sigma * self.sigma_data) ** 2) * losses
+            else:
+                raise ValueError("Invalid loss weighting for loss_type=denoiser: "
+                                 f"{self.loss_weighting}")
+            return _sum_mean(losses)
+        elif self.loss_type == "data_prediction":
+            if self.pesq_weight > 0.0:
+                raise NotImplementedError("the PESQ loss term (pesq_weight > 0) is not ported "
+                                          "yet (ROADMAP A12)")
+            f, tt = x.shape[2:]
+            loss_tf = _sum_mean((1.0 / (f * tt)) * torch.abs(forward_out - x) ** 2)
+            target_len = self.spec.target_len
+            x_hat_td = self.to_audio(forward_out[:, 0], target_len)
+            x_td = self.to_audio(x[:, 0], target_len)
+            loss_l1 = _sum_mean((1.0 / target_len) * torch.abs(x_hat_td - x_td))
+            return loss_tf + self.l1_weight * loss_l1
+        raise ValueError(f"Invalid loss type: {self.loss_type}")
+
+    def step_loss(self, x, y, generator: Optional[torch.Generator] = None,
+                  t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None):
+        """One training or validation loss on the spectrogram batch (x, y),
+        each complex (B, 1, F, T): t ~ U(t_eps, T) and z complex normal from
+        ``generator`` (or the given ``t`` and ``z``), x_t = mean + std * z.
+        Dropout follows the module's mode."""
+        if t is None:
+            t = (torch.rand(x.shape[0], generator=generator, device=x.device)
+                 * (self.sde.T - self.t_eps) + self.t_eps)
+        mean, std = self.sde.marginal_prob(x, y, t)
+        if z is None:
+            z = crandn(x.shape, generator, x.device)
+        x_t = mean + _bcast(std) * z
+        return self._loss(self(x_t, y, t, generator=generator), x_t, z, t, mean, x)
 
     def to_audio(self, spec, length: Optional[int] = None):
         return self.spec.spec_to_wav(spec, length=length)
@@ -287,13 +381,29 @@ class ScoreModel(nn.Module):
             return out, nfe, (time.time() - start) / (y_wav.shape[-1] / self.sr)
         return out
 
+    def enhance_eval(self, y_wav, generator: Optional[torch.Generator] = None,
+                     sampler_type: Optional[str] = None, predictor: str = "reverse_diffusion",
+                     corrector: str = "ald", N: int = 30, corrector_steps: int = 1,
+                     snr: float = 0.5, pad_mode: str = "zero_pad"):
+        """Enhancement for the in-training evaluation (JAX ``enhance_eval``):
+        :meth:`enhance` with the module's current (EMA) weights. The JAX package
+        needs a separate jitted program with the weights as arguments; eager
+        PyTorch does not. On SBVE it ignores ``N`` and runs the SDE's own
+        ``sde.N`` steps, as :meth:`enhance` does."""
+        return self.enhance(y_wav, generator=generator, sampler_type=sampler_type,
+                            predictor=predictor, corrector=corrector, N=N,
+                            corrector_steps=corrector_steps, snr=snr, pad_mode=pad_mode)
+
     # --- config round trip (the config.json of a JAX checkpoint) -------------------------
     def config_dict(self) -> dict:
         """The JAX ``ScoreModel.config_dict()`` of this model."""
-        cfg = dict(backbone=self.backbone, sde=self.sde_name, t_eps=self.t_eps,
-                   loss_type=self.loss_type, network_scaling=self.network_scaling,
+        cfg = dict(backbone=self.backbone, sde=self.sde_name, lr=self.lr,
+                   ema_decay=self.ema_decay, t_eps=self.t_eps,
+                   num_eval_files=self.num_eval_files, loss_type=self.loss_type,
+                   loss_weighting=self.loss_weighting, network_scaling=self.network_scaling,
                    c_in=self.c_in_type, c_out=self.c_out_type, c_skip=self.c_skip_type,
-                   sigma_data=self.sigma_data, sr=self.sr, **self.train_config)
+                   sigma_data=self.sigma_data, l1_weight=self.l1_weight,
+                   pesq_weight=self.pesq_weight, sr=self.sr)
         cfg.update(self.spec.config_dict())
         cfg.update(self.sde.config_dict())
         cfg.update({k: list(v) if isinstance(v, tuple) else v

@@ -275,16 +275,19 @@ class ResnetBlockBigGANpp(nn.Module):
     The block's activation is swish, fused into the GroupNorm kernel, and so is
     the time-embedding bias before GroupNorm_1, which the JAX block adds to h in
     the compute dtype: the port adds it in float32, so in bfloat16 it skips one
-    rounding of the sum. Inference only: dropout is not applied.
+    rounding of the sum. ``dropout`` applies after GroupNorm_1 in ``train()``
+    mode only (flax ``nn.Dropout``: keep with probability 1 - rate, scale by
+    its inverse), drawing its mask from the ``generator`` given to forward.
     """
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None, up: bool = False,
-                 down: bool = False, fir: bool = False,
+                 down: bool = False, dropout: float = 0.0, fir: bool = False,
                  fir_kernel: Sequence[int] = (1, 3, 3, 1), skip_rescale: bool = True,
                  init_scale: float = 0.0, temb_dim: Optional[int] = None, dtype=None):
         super().__init__()
         out_ch = out_ch if out_ch else in_ch
         self.up, self.down, self.fir = up, down, fir
+        self.dropout = dropout
         self.fir_kernel = tuple(fir_kernel)
         self.skip_rescale = skip_rescale
         self.GroupNorm_0 = GroupNorm(in_ch, silu=True, dtype=dtype)
@@ -304,13 +307,21 @@ class ResnetBlockBigGANpp(nn.Module):
         naive = ufd.naive_upsample_2d if self.up else ufd.naive_downsample_2d
         return naive(h, factor=2), naive(x, factor=2)
 
-    def forward(self, x, temb=None):
+    def _dropout(self, h, generator: Optional[torch.Generator]):
+        if not self.training or self.dropout == 0.0:
+            return h
+        keep = 1.0 - self.dropout
+        mask = torch.empty(h.shape, device=h.device).bernoulli_(keep, generator=generator)
+        return torch.where(mask.bool(), h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    def forward(self, x, temb=None, generator: Optional[torch.Generator] = None):
         h = self.GroupNorm_0(x)
         if self.up or self.down:
             h, x = self._resample(h, x.contiguous(memory_format=CL))
         h = self.Conv_0(h)
         bias = None if temb is None else self.Dense_0(F.silu(temb))
         h = self.GroupNorm_1(h, bias)
+        h = self._dropout(h, generator)
         h = self.Conv_1(h)
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)

@@ -21,19 +21,25 @@ Ported branches: BigGAN res-blocks with FIR resampling, ``output_skip`` and
 Fourier or positional time embedding. The others (``ddpm`` blocks,
 ``residual`` pyramids, ``cat`` combine, non-FIR resampling, other
 activations) raise NotImplementedError.
-Inference only: dropout and rematerialisation are training options and are
-accepted and ignored.
+Training, as in the JAX package: ``dropout`` applies inside each res-block in
+``train()`` mode only, with masks drawn from the ``generator`` given to
+forward; ``remat`` recomputes each res-block in the backward pass
+(``torch.utils.checkpoint``) instead of storing its activations, replaying
+the same dropout masks. Every K1 and K2 call is differentiable through its
+hand-written backward (``ops``); under ``remat`` the recomputation launches
+the forward kernels a second time.
 
 Call contract: ``forward(x_t, y, t) -> complex64 (B, 1, F, T)``; the legacy
 ``score = -dnn(...)`` sign lives in the ScoreModel.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops import upfirdn2d as ufd
 from .blocks import (CL, AttnBlockpp, Combine, Conv2d, Conv3x3, DDPMDense,
@@ -109,6 +115,7 @@ class NCSNppBase(nn.Module):
         self.output_layer_before_sigma = output_layer_before_sigma
         self.image_size = image_size
         self.precision = precision
+        self.remat = remat
         self.output_skip = progressive == "output_skip"
         self.input_skip = progressive_input == "input_skip"
         dt = self.compute_dtype = compute_dtype_for(precision)
@@ -117,7 +124,8 @@ class NCSNppBase(nn.Module):
 
         def resblock(name, in_ch, out_ch=None, up=False, down=False):
             self.add_module(name, ResnetBlockBigGANpp(
-                in_ch, out_ch, up=up, down=down, fir=fir, fir_kernel=self.fir_kernel,
+                in_ch, out_ch, up=up, down=down, dropout=dropout, fir=fir,
+                fir_kernel=self.fir_kernel,
                 skip_rescale=skip_rescale, init_scale=init_scale, temb_dim=temb_dim, dtype=dt))
 
         def attn(name, ch):
@@ -187,8 +195,35 @@ class NCSNppBase(nn.Module):
                                f"but the model was built for image_size {self.image_size}")
         return block(h)
 
-    def forward(self, x_t: torch.Tensor, y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def _resblock(self, name: str, x: torch.Tensor, temb, generator):
+        """Res-block ``name``; under ``remat`` (training with grad) its
+        activations are recomputed in the backward, with the generator's state
+        of the first call, so dropout draws the same masks and the generator is
+        left where the forward left it."""
+        block = self._modules[name]
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return block(x, temb, generator)
+        state = None if generator is None else generator.get_state()
+        calls = []
+
+        def run(x, temb):
+            if calls and state is not None:
+                current = generator.get_state()
+                generator.set_state(state)
+                try:
+                    return block(x, temb, generator)
+                finally:
+                    generator.set_state(current)
+            calls.append(1)
+            return block(x, temb, generator)
+
+        return torch.utils.checkpoint.checkpoint(run, x, temb, use_reentrant=False)
+
+    def forward(self, x_t: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in ``train()`` mode."""
         m = self._modules
+        res = lambda name, h: self._resblock(name, h, temb, generator)
         dt = self.compute_dtype
         num_resolutions = len(self.ch_mult)
 
@@ -216,27 +251,27 @@ class NCSNppBase(nn.Module):
         hs = [self.conv_in(x)]
         for i_level in range(num_resolutions):
             for i_block in range(self.num_res_blocks):
-                h = m[f"down_{i_level}_block{i_block}"](hs[-1], temb)
+                h = res(f"down_{i_level}_block{i_block}", hs[-1])
                 if h.shape[2] in self.attn_resolutions:
                     h = self._attn(f"down_{i_level}_attn{i_block}", h)
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = m[f"down_{i_level}_downres"](hs[-1], temb)
+                h = res(f"down_{i_level}_downres", hs[-1])
                 if self.input_skip:
                     input_pyramid = ufd.downsample_2d(input_pyramid, self.fir_kernel, factor=2)
                     h = m[f"down_{i_level}_combine"](input_pyramid, h)
                 hs.append(h)
 
         # --- middle -------------------------------------------------------------------
-        h = m["mid_block0"](hs[-1], temb)
+        h = res("mid_block0", hs[-1])
         h = m["mid_attn"](h)
-        h = m["mid_block1"](h, temb)
+        h = res("mid_block1", h)
 
         # --- up path ------------------------------------------------------------------
         pyramid = None
         for i_level in reversed(range(num_resolutions)):
             for i_block in range(self.num_res_blocks + 1):
-                h = m[f"up_{i_level}_block{i_block}"](torch.cat([h, hs.pop()], dim=1), temb)
+                h = res(f"up_{i_level}_block{i_block}", torch.cat([h, hs.pop()], dim=1))
             if h.shape[2] in self.attn_resolutions:
                 h = self._attn(f"up_{i_level}_attn", h)
             if self.output_skip:
@@ -248,7 +283,7 @@ class NCSNppBase(nn.Module):
                                               self.fir_kernel, factor=2)
                     pyramid = pyramid + pyramid_h
             if i_level != 0:
-                h = m[f"up_{i_level}_upres"](h, temb)
+                h = res(f"up_{i_level}_upres", h)
         assert not hs
         h = pyramid if self.output_skip else self.out_conv(self.out_norm(h))
 
@@ -284,6 +319,9 @@ class NCSNpp(NCSNppBase):
         parser.add_argument("--precision", type=str, default="float32",
                             choices=("float32", "bfloat16"),
                             help="Compute dtype (params stay float32).")
+        parser.add_argument("--remat", action="store_true",
+                            help="Recompute res-block activations in backward "
+                                 "(less memory, ~30%% more FLOPs).")
         return parser
 
 
@@ -294,6 +332,20 @@ class NCSNpp_v2(NCSNppBase):
 
     def __init__(self, scale_by_sigma: bool = False, **kwargs):
         super().__init__(scale_by_sigma=scale_by_sigma, **kwargs)
+
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--nf", type=int, default=128)
+        parser.add_argument("--ch_mult", type=int, nargs="+", default=[1, 1, 2, 2, 2, 2, 2])
+        parser.add_argument("--num_res_blocks", type=int, default=2)
+        parser.add_argument("--attn_resolutions", type=int, nargs="+", default=[16])
+        parser.add_argument("--precision", type=str, default="float32",
+                            choices=("float32", "bfloat16"),
+                            help="Compute dtype (params stay float32).")
+        parser.add_argument("--remat", action="store_true",
+                            help="Recompute res-block activations in backward "
+                                 "(less memory, ~30%% more FLOPs).")
+        return parser
 
 
 @BackboneRegistry.register("ncsnpp_48k")
@@ -307,3 +359,25 @@ class NCSNpp_48k(NCSNppBase):
         super().__init__(attn_resolutions=attn_resolutions, progressive=progressive,
                          progressive_input=progressive_input,
                          output_layer_before_sigma=output_layer_before_sigma, **kwargs)
+
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--ch_mult", type=int, nargs="+", default=[1, 1, 2, 2, 2, 2, 2])
+        parser.add_argument("--num_res_blocks", type=int, default=2)
+        parser.add_argument("--attn_resolutions", type=int, nargs="+", default=[])
+        parser.add_argument("--nf", type=int, default=128,
+                            help="Number of channels to use in the model")
+        parser.add_argument("--no-centered", dest="centered", action="store_false")
+        parser.add_argument("--centered", dest="centered", action="store_true")
+        parser.set_defaults(centered=True)
+        parser.add_argument("--progressive", type=str, default="none",
+                            help="Progressive downsampling method")
+        parser.add_argument("--progressive_input", type=str, default="none",
+                            help="Progressive upsampling method")
+        parser.add_argument("--precision", type=str, default="float32",
+                            choices=("float32", "bfloat16"),
+                            help="Compute dtype (params stay float32).")
+        parser.add_argument("--remat", action="store_true",
+                            help="Recompute res-block activations in backward "
+                                 "(less memory, ~30%% more FLOPs).")
+        return parser

@@ -1,6 +1,8 @@
-"""Where the time of one score-network evaluation goes on the card.
+"""Where the time of one score-network evaluation, or of one train step, goes
+on the card.
 
     python -m sgmse_tpu_torch.nfe_profile [--backbone ncsnpp_48k] [--out DIR]
+    python -m sgmse_tpu_torch.nfe_profile --train [--out DIR]
 
 Builds a full-width NCSN++ (seeded weights, bfloat16 compute, channels_last)
 and evaluates it on a (4, 1, F, 256) input (four 2.04-s utterances; F = 256
@@ -17,6 +19,12 @@ sampler does:
 The trace inflates host time, so the idle share of the traced span is an upper
 bound; the busy time against the untraced wall time gives the other reading.
 Prints one JSON line; writes the trace to ``DIR/nfe_trace.json``.
+
+With ``--train`` the unit is one train step of the full-width flagship at the
+JAX training defaults (B=8 2.04-s crops, float32, Adam + EMA, seeded
+weights): CUDA events around windows of ``TRAIN_REPS`` steps (steps/s,
+samples/s), the peak device memory, and a trace of ``TRAIN_TRACED`` steps
+(``DIR/train_trace.json``) read the same way.
 """
 from __future__ import annotations
 
@@ -34,9 +42,13 @@ from .kernel_times import BINS
 BATCH, FRAMES = 4, 256  # the main path's batch of 2.04-s utterances
 REPS = 20               # evaluations per timed window
 TRACED = 5              # profiled evaluations
+TRAIN_BATCH = 8         # the JAX training CLI's default batch
+TRAIN_REPS = 3          # train steps per timed window
+TRAIN_TRACED = 2        # profiled train steps
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("K2 group_norm_act", ("gn_act_kernel",)),
+    ("K2b group_norm_act_bwd", ("gn_bwd_",)),
     ("K1 upfirdn2d", ("upfirdn2d",)),
     ("convolution (cuDNN)", ("fprop", "nhwcAddPadding", "cudnn")),
     ("matmul", ("nvjet", "gemm")),
@@ -82,9 +94,63 @@ def breakdown(events, evaluations: int) -> dict:
                for k, (ms, n) in sorted(per_kind.items(), key=lambda kv: -kv[1][0])})
 
 
+def _card() -> str:
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    return card.splitlines()[0] if card else torch.cuda.get_device_name(0)
+
+
+def train_step_profile(model, out_dir, seed: int = 0) -> dict:
+    """Steps/s, samples/s, peak memory and the device breakdown of train steps
+    of ``model`` (a ScoreModel on the card) on a seeded batch of
+    ``TRAIN_BATCH`` crops of ``model.spec.target_len`` samples."""
+    from . import train
+
+    dev = model.device
+    state = train.create_train_state(model, torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN_BATCH, model.spec.target_len)
+    x = torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    y = x + torch.from_numpy((0.1 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    train.train_step(model, state, x, y, gen)  # warm-up: cuDNN plans, allocator growth
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TRAIN_REPS):
+            loss = train.train_step(model, state, x, y, gen)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / TRAIN_REPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(TRAIN_TRACED):
+            train.train_step(model, state, x, y, gen)
+        torch.cuda.synchronize()
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / "train_trace.json"
+    prof.export_chrome_trace(str(trace))
+    wall = statistics.median(times)
+    result = dict(card=_card(), batch=TRAIN_BATCH, samples=shape[1],
+                  params=sum(p.numel() for p in model.parameters()),
+                  precision=model.dnn.precision, wall_ms=wall, wall_ms_windows=times,
+                  steps_per_s=1e3 / wall, samples_per_s=TRAIN_BATCH * 1e3 / wall,
+                  peak_gib=peak, last_loss=float(loss),
+                  **breakdown(json.loads(trace.read_text())["traceEvents"], TRAIN_TRACED))
+    result["idle_share_untraced"] = 1.0 - result["busy_ms"] / wall
+    return result
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--backbone", choices=sorted(BINS), default="ncsnpp")
+    parser.add_argument("--train", action="store_true",
+                        help="profile a flagship train step (B=8, float32) instead")
     parser.add_argument("--out", type=str, default="chiprun_out")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -92,6 +158,12 @@ def main(argv=None) -> dict:
     from .model import ScoreModel
 
     dev = torch.device("cuda", 0)
+    if args.train:
+        model = ScoreModel("ncsnpp", "ouve", init_scale=1.0).to(
+            dev, memory_format=torch.channels_last)
+        result = train_step_profile(model, args.out)
+        print(json.dumps(result))
+        return result
     model = ScoreModel(args.backbone, "ouve", precision="bfloat16", init_scale=1.0)
     model.init_params(torch.Generator().manual_seed(0))
     model = model.to(dev, memory_format=torch.channels_last).eval()
@@ -122,10 +194,7 @@ def main(argv=None) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     trace = out / "nfe_trace.json"
     prof.export_chrome_trace(str(trace))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-    result = dict(card=card.splitlines()[0] if card else torch.cuda.get_device_name(0),
-                  backbone=args.backbone, batch=BATCH, bins=shape[2], frames=FRAMES,
+    result = dict(card=_card(), backbone=args.backbone, batch=BATCH, bins=shape[2], frames=FRAMES,
                   wall_ms=statistics.median(times), wall_ms_windows=times,
                   **breakdown(json.loads(trace.read_text())["traceEvents"], TRACED))
     result["idle_share_untraced"] = 1.0 - result["busy_ms"] / result["wall_ms"]

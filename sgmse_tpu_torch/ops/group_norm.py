@@ -27,6 +27,25 @@ kernel ``csrc/group_norm_act.cu`` (:func:`group_norm_act_cuda`, one launch per
 call), which raises on anything it does not take. The note at the top of the
 ``.cu`` file says what bounds the kernel on the H100 and what the design does
 about it.
+
+Gradients. When an input requires grad, the dispatcher runs as a
+``torch.autograd.Function``: the forward also writes each (batch, group)'s
+float32 (mean, variance before the clamp) to a (B, G, 2) buffer (K2 writes it
+from the statistics it computes anyway; at inference no buffer is made), and
+the backward is :func:`group_norm_act_bwd`: the hand-written kernel
+``csrc/group_norm_act_bwd.cu`` (K2b, :func:`group_norm_act_bwd_cuda`) on the
+card, the explicit formula :func:`group_norm_act_bwd_plain` on the CPU. With
+u = x + pre_bias, x^ = (u - mean) * rstd, v = gamma * x^ + beta, s = sigmoid(v),
+dv = dy * s * (1 + v * (1 - s)) (dv = dy without SiLU) and g = gamma * dv:
+
+    dgamma = sum_{b,hw} dv * x^,  dbeta = sum_{b,hw} dv,
+    du = rstd * (g - mean_grp(g) - f * x^ * mean_grp(g * x^)),
+    dx = du,  dpre_bias[b, c] = sum_hw du,
+
+where f is 1 where the variance is above 0, 0 where the clamp at 0 is active
+and 1/2 where it is exactly 0 (JAX's derivative of ``maximum``), so that the
+gradient is the one JAX's autodiff of the same forward gives. dx and
+dpre_bias come back in x's dtype, dgamma and dbeta in float32.
 """
 from __future__ import annotations
 
@@ -43,80 +62,228 @@ def num_groups_for(channels: int) -> int:
     return min(channels // 4, 32)
 
 
-def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                         num_groups: int, eps: float = 1e-6, silu: bool = True,
-                         pre_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch GroupNorm (+ SiLU) on (B, C, H, W), after adding the
-    (B, C) ``pre_bias`` if given; result in x's dtype and channels_last memory."""
+def _stats_plain(x: torch.Tensor, num_groups: int, pre_bias: Optional[torch.Tensor]):
+    """(u grouped as (B, G, C//G, H*W) float32, mean, variance before the clamp),
+    the statistics as (B, G, 1, 1)."""
     b, c, h, w = x.shape
-    cg = c // num_groups
     xf = x.float()
     if pre_bias is not None:
         xf = xf + pre_bias.float()[:, :, None, None]
-    xg = xf.reshape(b, num_groups, cg, h * w)
-    mean = xg.mean(dim=(2, 3), keepdim=True)
-    mean2 = (xg * xg).mean(dim=(2, 3), keepdim=True)
-    var = (mean2 - mean * mean).clamp_min(0.0)
-    mul = torch.rsqrt(var + eps) * gamma.float().reshape(1, num_groups, cg, 1)
-    y = (xg - mean) * mul + beta.float().reshape(1, num_groups, cg, 1)
+    ug = xf.reshape(b, num_groups, c // num_groups, h * w)
+    mean = ug.mean(dim=(2, 3), keepdim=True)
+    mean2 = (ug * ug).mean(dim=(2, 3), keepdim=True)
+    return ug, mean, mean2 - mean * mean
+
+
+def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         num_groups: int, eps: float = 1e-6, silu: bool = True,
+                         pre_bias: Optional[torch.Tensor] = None, return_stats: bool = False):
+    """Plain PyTorch GroupNorm (+ SiLU) on (B, C, H, W), after adding the
+    (B, C) ``pre_bias`` if given; result in x's dtype and channels_last memory.
+    With ``return_stats``, also the float32 (B, G, 2) (mean, unclamped
+    variance) that :func:`group_norm_act_bwd_plain` takes."""
+    b, c, h, w = x.shape
+    cg = c // num_groups
+    ug, mean, var_raw = _stats_plain(x, num_groups, pre_bias)
+    mul = torch.rsqrt(var_raw.clamp_min(0.0) + eps) * gamma.float().reshape(1, num_groups, cg, 1)
+    y = (ug - mean) * mul + beta.float().reshape(1, num_groups, cg, 1)
     y = y.reshape(b, c, h, w)
     if silu:
         y = F.silu(y)
-    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    y = y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    if return_stats:
+        return y, torch.stack([mean.reshape(b, num_groups), var_raw.reshape(b, num_groups)], -1)
+    return y
 
 
-def group_norm_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                        num_groups: int, eps: float = 1e-6, silu: bool = True,
-                        pre_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the hand-written kernel once. Takes a CUDA tensor (B, C, H, W) in
-    channels_last memory, float32 or bfloat16, with C a multiple of the 16-byte
-    vector (4 float32 or 8 bfloat16 channels), at most 512 such vectors, and a
-    multiple of num_groups; float32 gamma and beta of shape (C,); and an optional
-    ``pre_bias`` of shape (B, C) in x's dtype. Raises on anything else."""
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm_act_cuda takes a CUDA tensor, got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"group_norm_act_cuda takes float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 4 or not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("group_norm_act_cuda takes a 4-D tensor in channels_last memory")
+def group_norm_act_bwd_plain(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
+                             beta: torch.Tensor, stats: torch.Tensor, num_groups: int,
+                             eps: float = 1e-6, silu: bool = True,
+                             pre_bias: Optional[torch.Tensor] = None):
+    """The plain version of K2b: the gradients (dx, dgamma, dbeta, dpre_bias)
+    of :func:`group_norm_act` from dy and the forward's ``stats``, by the
+    explicit formula of the module docstring, in float32; dpre_bias is None
+    without a pre-bias."""
     b, c, h, w = x.shape
+    cg = c // num_groups
+    ug, _, _ = _stats_plain(x, num_groups, pre_bias)
+    mean = stats[..., 0].float().reshape(b, num_groups, 1, 1)
+    var_raw = stats[..., 1].float().reshape(b, num_groups, 1, 1)
+    rstd = torch.rsqrt(var_raw.clamp_min(0.0) + eps)
+    xhat = (ug - mean) * rstd
+    gam = gamma.float().reshape(1, num_groups, cg, 1)
+    dv = dy.float().reshape(b, num_groups, cg, h * w)
+    if silu:
+        v = xhat * gam + beta.float().reshape(1, num_groups, cg, 1)
+        s = torch.sigmoid(v)
+        dv = dv * s * (1.0 + v * (1.0 - s))
+    dgamma = (dv * xhat).sum(dim=(0, 3)).reshape(c)
+    dbeta = dv.sum(dim=(0, 3)).reshape(c)
+    g = gam * dv
+    f = torch.where(var_raw > 0, 1.0, torch.where(var_raw == 0, 0.5, 0.0))
+    du = rstd * (g - g.mean(dim=(2, 3), keepdim=True)
+                 - f * xhat * (g * xhat).mean(dim=(2, 3), keepdim=True))
+    dx = du.reshape(b, c, h, w).to(x.dtype).contiguous(memory_format=torch.channels_last)
+    dpre_bias = None if pre_bias is None else du.sum(dim=3).reshape(b, c).to(pre_bias.dtype)
+    return dx, dgamma, dbeta, dpre_bias
+
+
+def _check_cuda_args(what: str, x: torch.Tensor, gamma, beta, num_groups, pre_bias,
+                     tensors=()):
+    """Raise on anything the kernels do not take (shared by K2 and K2b)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} takes a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} takes float32 or bfloat16, got {x.dtype}")
+    b, c = x.shape[:2]
+    for name, t in (("x", x), *tensors):
+        if t.ndim != 4 or not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"{what}: {name} must be a 4-D tensor in channels_last memory")
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{what}: {name} must have x's shape, dtype and device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
     vec = 16 // x.element_size()
     if c % vec or c // vec > 512 or c % num_groups:
-        raise ValueError(f"group_norm_act_cuda: unsupported C={c}, groups={num_groups} "
-                         f"for {x.dtype}")
+        raise ValueError(f"{what}: unsupported C={c}, groups={num_groups} for {x.dtype}")
     params = [("gamma", gamma, (c,), torch.float32), ("beta", beta, (c,), torch.float32)]
     if pre_bias is not None:
         params.append(("pre_bias", pre_bias, (b, c), x.dtype))
     for name, p, shape, dtype in params:
         if (p.device != x.device or p.dtype != dtype or tuple(p.shape) != shape
                 or not p.is_contiguous()):
-            raise ValueError(f"group_norm_act_cuda: {name} must be a contiguous {dtype} "
-                             f"{shape} tensor on {x.device}")
-    if x.data_ptr() % 16:
-        raise ValueError("group_norm_act_cuda: input is not 16-byte aligned")
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} {shape} tensor on "
+                             f"{x.device}")
+
+
+def group_norm_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                        num_groups: int, eps: float = 1e-6, silu: bool = True,
+                        pre_bias: Optional[torch.Tensor] = None, return_stats: bool = False):
+    """Launch the hand-written kernel once. Takes a CUDA tensor (B, C, H, W) in
+    channels_last memory, float32 or bfloat16, with C a multiple of the 16-byte
+    vector (4 float32 or 8 bfloat16 channels), at most 512 such vectors, and a
+    multiple of num_groups; float32 gamma and beta of shape (C,); and an optional
+    ``pre_bias`` of shape (B, C) in x's dtype. Raises on anything else. With
+    ``return_stats`` the same launch also writes the (B, G, 2) statistics."""
+    _check_cuda_args("group_norm_act_cuda", x, gamma, beta, num_groups, pre_bias)
+    b, c, h, w = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = (torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
+             if return_stats else None)
     # Scratch for the per-block partial sums: at most one block per SM.
     blocks = max(b, torch.cuda.get_device_properties(x.device).multi_processor_count)
     partial = torch.empty((blocks, num_groups, 2), dtype=torch.float32, device=x.device)
     err = kernels.lib().sgmse_group_norm_act(
         x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        None if pre_bias is None else pre_bias.data_ptr(), partial.data_ptr(), blocks,
+        None if pre_bias is None else pre_bias.data_ptr(),
+        None if stats is None else stats.data_ptr(), partial.data_ptr(), blocks,
         b, h * w, c, num_groups, eps, int(silu), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "group_norm_act kernel")
     group_norm_act_cuda.launches += 1
-    return y
+    return (y, stats) if return_stats else y
 
 
 group_norm_act_cuda.launches = 0
 
 
+def bwd_blocks_per_row(b: int, hw: int, c: int, element_size: int, sms: int) -> int:
+    """K2b's blocks per batch row: about four waves of the card's SMs over the
+    batch, at least 16 KB of x per block, at most one block per pixel."""
+    by_work = -(-hw * c * element_size // (16 * 1024))
+    return max(1, min(-(-4 * sms // b), by_work, hw))
+
+
+def group_norm_act_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
+                            beta: torch.Tensor, stats: torch.Tensor, num_groups: int,
+                            eps: float = 1e-6, silu: bool = True,
+                            pre_bias: Optional[torch.Tensor] = None):
+    """Launch K2b once (three kernels on the stream: per-block partial sums,
+    their combine per batch row, then dx): the gradients of
+    :func:`group_norm_act_bwd_plain`. dy and x: CUDA (B, C, H, W), channels_last,
+    one dtype (float32 or bfloat16), the forward's constraints on C; stats the
+    forward's float32 (B, G, 2). Raises on anything else."""
+    _check_cuda_args("group_norm_act_bwd_cuda", x, gamma, beta, num_groups, pre_bias,
+                     tensors=(("dy", dy),))
+    b, c, h, w = x.shape
+    if c // (16 // x.element_size()) > 256:
+        raise ValueError(f"group_norm_act_bwd_cuda: unsupported C={c} for {x.dtype}")
+    if (stats.device != x.device or stats.dtype != torch.float32
+            or tuple(stats.shape) != (b, num_groups, 2) or not stats.is_contiguous()):
+        raise ValueError(f"group_norm_act_bwd_cuda: stats must be a contiguous float32 "
+                         f"({b}, {num_groups}, 2) tensor on {x.device}")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nb = bwd_blocks_per_row(b, h * w, c, x.element_size(), sms)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    dpre_bias = None if pre_bias is None else torch.empty_like(pre_bias)
+    partial = torch.empty((b, nb, c, 4), dtype=torch.float32, device=x.device)
+    rowsum = torch.empty((b, c, 4), dtype=torch.float32, device=x.device)
+    err = kernels.lib().sgmse_group_norm_act_bwd(
+        dy.data_ptr(), x.data_ptr(), dx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if pre_bias is None else pre_bias.data_ptr(), stats.data_ptr(),
+        None if dpre_bias is None else dpre_bias.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), partial.data_ptr(), rowsum.data_ptr(), nb, b, h * w, c, num_groups,
+        eps, int(silu), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "group_norm_act_bwd kernel")
+    group_norm_act_bwd_cuda.launches += 1
+    return dx, dgamma, dbeta, dpre_bias
+
+
+group_norm_act_bwd_cuda.launches = 0
+
+
+def group_norm_act_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, stats: torch.Tensor, num_groups: int,
+                       eps: float = 1e-6, silu: bool = True,
+                       pre_bias: Optional[torch.Tensor] = None):
+    """Gradients of :func:`group_norm_act`: K2b on the card, the plain formula
+    on the CPU."""
+    args = (dy, x, gamma, beta, stats, num_groups, eps, silu, pre_bias)
+    if x.device.type == "cuda":
+        return group_norm_act_bwd_cuda(*args)
+    if x.device.type == "cpu":
+        return group_norm_act_bwd_plain(*args)
+    raise ValueError(f"group_norm_act_bwd: unsupported device {x.device}")
+
+
+def _forward(x, gamma, beta, num_groups, eps, silu, pre_bias, return_stats=False):
+    """K2 on the card, the plain version on the CPU. No autograd."""
+    args = (x, gamma, beta, num_groups, eps, silu, pre_bias, return_stats)
+    if x.device.type == "cuda":
+        return group_norm_act_cuda(*args)
+    if x.device.type == "cpu":
+        return group_norm_act_plain(*args)
+    raise ValueError(f"group_norm_act: unsupported device {x.device}")
+
+
+class _GroupNormAct(torch.autograd.Function):
+    """group_norm_act with :func:`group_norm_act_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, pre_bias, num_groups, eps, silu):
+        y, stats = _forward(x, gamma, beta, num_groups, eps, silu, pre_bias, return_stats=True)
+        ctx.save_for_backward(x, gamma, beta, pre_bias, stats)
+        ctx.num_groups, ctx.eps, ctx.silu = num_groups, eps, silu
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, pre_bias, stats = ctx.saved_tensors
+        dx, dgamma, dbeta, dpre_bias = group_norm_act_bwd(
+            dy.contiguous(memory_format=torch.channels_last), x, gamma, beta, stats,
+            ctx.num_groups, ctx.eps, ctx.silu, pre_bias)
+        return dx, dgamma, dbeta, dpre_bias, None, None, None
+
+
 def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    num_groups: int, eps: float = 1e-6, silu: bool = True,
                    pre_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """GroupNorm over `num_groups` groups of x + pre_bias, then SiLU if `silu`."""
-    if x.device.type == "cuda":
-        return group_norm_act_cuda(x, gamma, beta, num_groups, eps, silu, pre_bias)
-    if x.device.type == "cpu":
-        return group_norm_act_plain(x, gamma, beta, num_groups, eps, silu, pre_bias)
-    raise ValueError(f"group_norm_act: unsupported device {x.device}")
+    """GroupNorm over `num_groups` groups of x + pre_bias, then SiLU if `silu`;
+    differentiable in x, gamma, beta and pre_bias."""
+    tensors = (x, gamma, beta) + (() if pre_bias is None else (pre_bias,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _GroupNormAct.apply(x, gamma, beta, pre_bias, num_groups, eps, silu)
+    return _forward(x, gamma, beta, num_groups, eps, silu, pre_bias)

@@ -21,6 +21,14 @@ such as a res-block's h and skip x, in one launch. The kernel replaces the XLA
 depthwise convolution of ``sgmse_tpu/ops/upfirdn2d.py:84-139``; the source note
 at the top of the ``.cu`` file says what bounds it on the H100 and what the
 design does about it.
+
+Gradients. When its input requires grad, each dispatcher runs as a
+``torch.autograd.Function`` whose backward is the adjoint, itself an
+upfirdn2d (StyleGAN2's ``Upfirdn2dBackward``): the flipped FIR, ``up`` and
+``down`` swapped, pad0' = kh - 1 - pad0 and pad1' = H*up - OH*down + pad0 - up
++ 1, which gives back exactly H rows (:func:`adjoint_args`). The backward
+calls the same dispatcher, so on the card it is one more kernel launch (one
+pair launch for a pair) and on the CPU the plain version.
 """
 from __future__ import annotations
 
@@ -115,11 +123,13 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
     """Launch the hand-written kernel. Takes a CUDA tensor (B, C, H, W) in
     channels_last memory, float32 or bfloat16, C a multiple of 4, up and down in
     {1, 2} and an FIR of at most 4x4; raises on anything else. Its ``launches``
-    counts the launches of this function and of :func:`upfirdn2d_pair_cuda`."""
+    counts the launches of this function and of :func:`upfirdn2d_pair_cuda`, and
+    its ``adjoint_launches`` those of them that computed a backward."""
     return _launch([x], kernel, up, down, pad)[0]
 
 
 upfirdn2d_cuda.launches = 0
+upfirdn2d_cuda.adjoint_launches = 0
 
 
 def upfirdn2d_pair_cuda(x0: torch.Tensor, x1: torch.Tensor, kernel: Kernel, up: int = 1,
@@ -135,24 +145,92 @@ def upfirdn2d_pair_plain(x0: torch.Tensor, x1: torch.Tensor, kernel: Kernel, up:
             upfirdn2d_plain(x1, kernel, up, down, pad))
 
 
+def _forward(xs: Sequence[torch.Tensor], kernel: Kernel, up: int, down: int,
+             pad: Tuple[int, int]) -> tuple:
+    """upfirdn2d of one tensor or a pair, on the device of the first: the kernel
+    on CUDA, the plain version on the CPU. No autograd."""
+    x = xs[0]
+    if x.device.type == "cuda":
+        if len(xs) == 2:
+            return upfirdn2d_pair_cuda(xs[0], xs[1], kernel, up, down, pad)
+        return (upfirdn2d_cuda(x, kernel, up, down, pad),)
+    if x.device.type == "cpu":
+        return tuple(upfirdn2d_plain(t, kernel, up, down, pad) for t in xs)
+    raise ValueError(f"upfirdn2d: unsupported device {x.device}")
+
+
+def adjoint_args(in_hw: Tuple[int, int], out_hw: Tuple[int, int], kernel: Kernel, up: int,
+                 down: int, pad: Tuple[int, int]):
+    """The upfirdn2d whose output is the gradient of an upfirdn2d's input:
+    ``(flipped kernel, dict(up=, down=, pad=), crop)``. ``crop`` is None, or
+    the (H, W) to cut the adjoint's output to where the two axes need different
+    pad1' (their sizes differ in parity under ``down`` = 2)."""
+    k = np.asarray(kernel, dtype=np.float32)
+    if k.ndim != 2 or k.shape[0] != k.shape[1]:
+        raise ValueError(f"upfirdn2d adjoint takes a square 2-D FIR, got {k.shape}")
+    pad0, _ = pad
+    pad1 = [n * up - o * down + pad0 - up + 1 for n, o in zip(in_hw, out_hw)]
+    kw = dict(up=down, down=up, pad=(k.shape[0] - 1 - pad0, max(pad1)))
+    crop = None if pad1[0] == pad1[1] else tuple(in_hw)
+    return np.ascontiguousarray(k[::-1, ::-1]), kw, crop
+
+
+def _adjoint(dys: Sequence[torch.Tensor], ctx) -> tuple:
+    """Gradients of the inputs of a (pair) upfirdn2d from its outputs' gradients,
+    through the dispatcher: one kernel launch on the card. Gradients arrive in
+    any memory format and are made channels_last for the launch."""
+    kernel, kw, crop = adjoint_args(ctx.in_hw, ctx.out_hw, ctx.kernel, ctx.up, ctx.down,
+                                    ctx.pad)
+    dys = [torch.zeros(ctx.out_shape, dtype=ctx.dtype, device=ctx.device) if d is None
+           else d.contiguous(memory_format=torch.channels_last) for d in dys]
+    if len(dys) == 2:
+        dxs = upfirdn2d_pair(dys[0], dys[1], kernel, **kw)
+    else:
+        dxs = (upfirdn2d(dys[0], kernel, **kw),)
+    if dxs[0].device.type == "cuda":
+        upfirdn2d_cuda.adjoint_launches += 1  # of upfirdn2d_cuda.launches, the backward's
+    if crop is not None:
+        dxs = tuple(d[:, :, :crop[0], :crop[1]].contiguous(memory_format=torch.channels_last)
+                    for d in dxs)
+    return dxs
+
+
+class _UpFirDn2d(torch.autograd.Function):
+    """upfirdn2d of one tensor or a pair, with the adjoint as its backward."""
+
+    @staticmethod
+    def forward(ctx, kernel, up, down, pad, *xs):
+        ys = _forward(xs, kernel, up, down, pad)
+        ctx.kernel, ctx.up, ctx.down, ctx.pad = kernel, up, down, pad
+        ctx.in_hw, ctx.out_hw = tuple(xs[0].shape[2:]), tuple(ys[0].shape[2:])
+        ctx.out_shape, ctx.dtype, ctx.device = ys[0].shape, ys[0].dtype, ys[0].device
+        return ys if len(ys) == 2 else ys[0]
+
+    @staticmethod
+    def backward(ctx, *dys):
+        return (None, None, None, None, *_adjoint(dys, ctx))
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def upfirdn2d(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
               pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """upfirdn2d on (B, C, H, W), same up/down/pad on both spatial axes."""
-    if x.device.type == "cuda":
-        return upfirdn2d_cuda(x, kernel, up, down, pad)
-    if x.device.type == "cpu":
-        return upfirdn2d_plain(x, kernel, up, down, pad)
-    raise ValueError(f"upfirdn2d: unsupported device {x.device}")
+    """upfirdn2d on (B, C, H, W), same up/down/pad on both spatial axes;
+    differentiable in x (the adjoint is one more upfirdn2d)."""
+    if _needs_grad(x):
+        return _UpFirDn2d.apply(kernel, up, down, pad, x)
+    return _forward([x], kernel, up, down, pad)[0]
 
 
 def upfirdn2d_pair(x0: torch.Tensor, x1: torch.Tensor, kernel: Kernel, up: int = 1,
                    down: int = 1, pad: Tuple[int, int] = (0, 0)):
-    """upfirdn2d of two tensors of the same shape (a res-block's h and skip x)."""
-    if x0.device.type == "cuda":
-        return upfirdn2d_pair_cuda(x0, x1, kernel, up, down, pad)
-    if x0.device.type == "cpu":
-        return upfirdn2d_pair_plain(x0, x1, kernel, up, down, pad)
-    raise ValueError(f"upfirdn2d_pair: unsupported device {x0.device}")
+    """upfirdn2d of two tensors of the same shape (a res-block's h and skip x);
+    differentiable in both, with one pair launch for the two gradients."""
+    if _needs_grad(x0, x1):
+        return _UpFirDn2d.apply(kernel, up, down, pad, x0, x1)
+    return _forward([x0, x1], kernel, up, down, pad)
 
 
 def _upsample_args(k: Kernel, factor: int, gain: float):

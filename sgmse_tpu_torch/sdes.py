@@ -99,6 +99,22 @@ class OUVESDE(SDE):
     N: int = 30
     sampler_type: str = "pc"
 
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--theta", type=float, default=1.5,
+                            help="The constant stiffness of the Ornstein-Uhlenbeck process. "
+                                 "1.5 by default.")
+        parser.add_argument("--sigma-min", type=float, default=0.05,
+                            help="The minimum sigma to use. 0.05 by default.")
+        parser.add_argument("--sigma-max", type=float, default=0.5,
+                            help="The maximum sigma to use. 0.5 by default.")
+        parser.add_argument("--N", type=int, default=30,
+                            help="The number of timesteps in the SDE discretization. "
+                                 "30 by default.")
+        parser.add_argument("--sampler_type", type=str, default="pc",
+                            help="Type of sampler to use. 'pc' by default.")
+        return parser
+
     @property
     def logsig(self) -> float:
         return math.log(self.sigma_max / self.sigma_min)
@@ -145,6 +161,21 @@ class SBVESDE(SDE):
     N: int = 50
     eps: float = 1e-8
     sampler_type: str = "ode"
+
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--N", type=int, default=50,
+                            help="The number of timesteps in the SDE discretization. "
+                                 "50 by default.")
+        parser.add_argument("--k", type=float, default=2.6,
+                            help="Parameter of the diffusion coefficient. 2.6 by default.")
+        parser.add_argument("--c", type=float, default=0.4,
+                            help="Parameter of the diffusion coefficient. 0.4 by default.")
+        parser.add_argument("--eps", type=float, default=1e-8,
+                            help="Small constant to avoid numerical instability. "
+                                 "1e-8 by default.")
+        parser.add_argument("--sampler_type", type=str, default="ode")
+        return parser
 
     def sde(self, x, y, t):
         drift = torch.zeros_like(x)

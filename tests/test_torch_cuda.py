@@ -9,7 +9,10 @@ the small test config's shapes plus awkward ones (C = 4, odd sizes, negative
 padding, a pre-bias, pairs) and the largest of the 48 kHz network (F = 768);
 chip_smoke.py does the same at every full-width shape.
 Tolerances, relative to max|plain|: float32 2e-5 (sums in another order),
-bfloat16 2^-7 (one bf16 rounding step).
+bfloat16 2^-7 (one bf16 rounding step). The backward kernels (K2b and the K1
+adjoint) are held the same way; K2b's float32 outputs (dgamma, dbeta, and all
+of them for float32 inputs) to 1e-4, its sums running over up to B*H*W terms
+per channel in another order.
 """
 import numpy as np
 import pytest
@@ -125,3 +128,114 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         ufd.upfirdn2d_pair(_input((1, 8, 8, 8), torch.float32, dev),
                            _input((1, 8, 8, 6), torch.float32, dev),
                            ufd.setup_kernel([1, 3, 3, 1]), down=2, pad=(1, 1))
+
+
+def _grad_tol(t):
+    return 1e-4 if t.dtype == torch.float32 else 2.0**-7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,silu,bias", [((2, 32, 8, 8), True, True),
+                                             ((1, 64, 16, 12), False, False),
+                                             ((2, 16, 5, 7), True, False),
+                                             ((4, 512, 4, 4), True, True),
+                                             ((2, 128, 64, 64), True, True),
+                                             ((2, 256, 16, 16), False, False)])
+def test_group_norm_act_bwd_kernel_matches_plain(dev, dtype, shape, silu, bias):
+    """K2b against the plain formula on the same dy, x and forward statistics;
+    the statistics K2 writes against the plain forward's; bit-for-bit repeats."""
+    x = _input(shape, dtype, dev) * 2.0 + 0.5
+    dy = _input(shape, dtype, dev, seed=3)
+    b, c = shape[:2]
+    g = torch.Generator(device=dev).manual_seed(1)
+    gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+    beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    pre_bias = torch.randn(b, c, generator=g, device=dev).to(dtype) if bias else None
+    groups = gn.num_groups_for(c)
+    _, stats = gn.group_norm_act_cuda(x, gamma, beta, groups, 1e-6, silu, pre_bias,
+                                      return_stats=True)
+    _, stats_plain = gn.group_norm_act_plain(x, gamma, beta, groups, 1e-6, silu, pre_bias,
+                                             return_stats=True)
+    torch.testing.assert_close(stats[..., 0], stats_plain[..., 0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[..., 1], stats_plain[..., 1], rtol=1e-4, atol=1e-6)
+    before = gn.group_norm_act_bwd_cuda.launches
+    got = gn.group_norm_act_bwd(dy, x, gamma, beta, stats, groups, 1e-6, silu, pre_bias)
+    torch.cuda.synchronize()
+    assert gn.group_norm_act_bwd_cuda.launches == before + 1
+    ref = gn.group_norm_act_bwd_plain(dy, x, gamma, beta, stats, groups, 1e-6, silu, pre_bias)
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    for name, k, r in zip(("dx", "dgamma", "dbeta", "dpre_bias"), got, ref):
+        if r is None:
+            assert k is None
+            continue
+        assert k.shape == r.shape and k.dtype == r.dtype, name
+        err = (k.float() - r.float()).abs().max().item()
+        assert err <= _grad_tol(r) * r.float().abs().max().item(), (name, err)
+    again = gn.group_norm_act_bwd(dy, x, gamma, beta, stats, groups, 1e-6, silu, pre_bias)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,up,pair", [((2, 128, 32, 48), 1, True),
+                                           ((2, 64, 16, 8), 2, True),
+                                           ((2, 4, 64, 64), 1, False),  # pyramid, C = 4
+                                           ((2, 4, 8, 8), 2, False),
+                                           ((1, 12, 9, 11), 1, True),   # odd sizes
+                                           ((1, 8, 7, 5), 2, False)])
+def test_upfirdn2d_backward_kernel_matches_plain(dev, dtype, shape, up, pair):
+    """The K1 adjoint (one launch, a pair launch for a pair) against autograd
+    through the plain version, at the resampling of the score network."""
+    k = ufd.setup_kernel([1, 3, 3, 1])
+    kw = dict(up=2, pad=(2, 1)) if up == 2 else dict(down=2, pad=(1, 1))
+    k = k * 4.0 if up == 2 else k
+    xs = [_input(shape, dtype, dev, seed=i).requires_grad_() for i in range(1 + pair)]
+    ys = ufd.upfirdn2d_pair(*xs, k, **kw) if pair else (ufd.upfirdn2d(xs[0], k, **kw),)
+    dys = [_input(y.shape, dtype, dev, seed=5 + i) for i, y in enumerate(ys)]
+    before = ufd.upfirdn2d_cuda.launches
+    grads = torch.autograd.grad(ys, xs, dys)
+    torch.cuda.synchronize()
+    assert ufd.upfirdn2d_cuda.launches == before + 1
+    plain = [x.detach().clone().requires_grad_() for x in xs]
+    refs = torch.autograd.grad([ufd.upfirdn2d_plain(p, k, **kw) for p in plain], plain, dys)
+    for g, r in zip(grads, refs):
+        _agree(g, r.contiguous(memory_format=torch.channels_last), dtype)
+
+
+def test_training_gradients_reach_every_parameter_through_the_kernels(dev):
+    """A small network's loss and gradients through the kernels (forward and
+    backward) against the plain versions, 1e-3 of max|grad| per leaf; every
+    trainable parameter gets a finite, non-zero gradient. The attention key
+    bias (``NIN_1.b``), whose exact gradient is zero (softmax invariance), is
+    held at rounding level instead."""
+    from sgmse_tpu_torch import kernel_times as kt
+    from sgmse_tpu_torch.model import ScoreModel
+
+    model = ScoreModel("ncsnpp", "ouve", nf=16, ch_mult=(1, 1, 2), num_res_blocks=1,
+                       attn_resolutions=(16,), image_size=64, init_scale=1.0)
+    model.init_params(torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last).train()
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy((rng.standard_normal((2, 1, 64, 64))
+                              + 1j * rng.standard_normal((2, 1, 64, 64))).astype(np.complex64))
+            .to(dev) for _ in range(2))
+    t = torch.tensor([0.3, 0.7], device=dev)
+    z = torch.from_numpy((rng.standard_normal((2, 1, 64, 64))
+                          + 1j * rng.standard_normal((2, 1, 64, 64))).astype(np.complex64)
+                         / np.sqrt(2)).to(dev)
+    names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
+    before = gn.group_norm_act_bwd_cuda.launches
+    loss = model.step_loss(x, y, t=t, z=z)
+    grads = torch.autograd.grad(loss, params)
+    assert gn.group_norm_act_bwd_cuda.launches > before
+    with kt.routed(plain=True):
+        loss_ref = model.step_loss(x, y, t=t, z=z)
+        refs = torch.autograd.grad(loss_ref, params)
+    assert abs(loss.item() - loss_ref.item()) <= 1e-4 * abs(loss_ref.item())
+    scale = max(r.abs().max() for r in refs)
+    for name, g, r in zip(names, grads, refs):
+        assert torch.isfinite(g).all(), name
+        if name.endswith("NIN_1.b"):
+            assert max(g.abs().max(), r.abs().max()) <= 1e-6 * scale, name
+            continue
+        assert g.abs().max() > 0, name
+        assert (g - r).abs().max() <= 1e-3 * r.abs().max(), name

@@ -133,3 +133,55 @@ def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward
     gn_sigs = [s for n, s in calls if n == "group_norm_act"]
     assert [sum(1 for s in gn_sigs if s[3] == flag) for flag in (True, False)] == silu_split
     assert sum(1 for s in gn_sigs if s[4]) == 49
+
+
+def test_train_signatures_are_the_flagship_training_calls():
+    """At full depth (narrow, short): one train step's forward makes the
+    inference calls (24 K1, 109 K2) and its backward 109 K2b and 18 K1 adjoints:
+    the 12 res-block pairs and the 6 output-pyramid upsamplings. The input
+    pyramid's 6 downsamplings act on the network input, which needs no
+    gradient. Each adjoint's signature is adjoint_args of its forward's."""
+    model = ScoreModel("ncsnpp", "ouve", nf=8, init_scale=1.0)
+    fwd, bwd = kt.record_train_calls(model, CPU, frames=64, batch=1)
+    names = lambda calls: {k: sum(1 for n, _ in calls if n == k) for k, _ in calls}
+    assert names(fwd) == {"group_norm_act": 109, "upfirdn2d": 24}
+    assert names(bwd) == {"group_norm_act_bwd": 109, "upfirdn2d_adjoint": 18}
+    assert sorted(s for n, s in bwd if n == "group_norm_act_bwd") == sorted(
+        s for n, s in fwd if n == "group_norm_act")
+    want = []
+    for name, sig in fwd:
+        if name != "upfirdn2d":
+            continue
+        shape, up, down, pad, taps, n = sig
+        if n == 1 and down == 2:  # the input pyramid: no gradient
+            continue
+        out_hw = ((shape[2] * up + sum(pad) - 4) // down + 1,
+                  (shape[3] * up + sum(pad) - 4) // down + 1)
+        k, kw, crop = ufd.adjoint_args(shape[2:], out_hw, np.reshape(taps, (4, 4)), up, down,
+                                       pad)
+        assert crop is None
+        want.append(((*shape[:2], *out_hw), kw["up"], kw["down"], kw["pad"],
+                     tuple(float(v) for v in k.ravel()), n))
+    assert sorted(s for _, s in bwd if _ == "upfirdn2d_adjoint") == sorted(want)
+
+
+@pytest.mark.parametrize("sig", [((2, 16, 8, 12), 2, 1, (2, 1), DOWN_TAPS, 2),  # adjoint of down
+                                 ((2, 16, 12, 8), 1, 2, (1, 1), UP_TAPS, 1)])  # adjoint of up
+def test_adjoint_library_yardstick_matches_plain(sig):
+    """cuDNN's depthwise backward-input computes the K1 adjoint's function."""
+    case = kt.make_case("upfirdn2d_adjoint", sig, torch.float32, CPU,
+                        torch.Generator().manual_seed(0))
+    for got, want in zip(case["library"](), case["library_ref"]()):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("silu,bias", [(False, False), (True, True)])
+def test_group_norm_bwd_library_yardstick_matches_plain(silu, bias):
+    sig = ((2, 32, 8, 6), 8, 1e-6, silu, bias)
+    case = kt.make_case("group_norm_act_bwd", sig, torch.float32, CPU,
+                        torch.Generator().manual_seed(1))
+    for got, want in zip(case["library"](), case["library_ref"]()):
+        _close(got, want)
+    assert len(case["plain"]()) == (4 if bias else 3)
+    assert case["bytes"] == 3 * 2 * 32 * 48 * 4 + 4 * 32 * 4 + 2 * 8 * 2 * 4 + (
+        2 * 2 * 32 * 4 if bias else 0)

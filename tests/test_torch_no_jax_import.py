@@ -17,7 +17,10 @@ def test_entry_point_imports_with_jax_blocked():
         f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
         "import sgmse_tpu_torch, sgmse_tpu_torch.enhance, sgmse_tpu_torch.convert\n"
         "import sgmse_tpu_torch.kernels, sgmse_tpu_torch.ops.upfirdn2d\n"
-        "import sgmse_tpu_torch.ops.group_norm\n"
+        "import sgmse_tpu_torch.ops.group_norm, sgmse_tpu_torch.train\n"
+        "import sgmse_tpu_torch.checkpoint, sgmse_tpu_torch.data.dataset\n"
+        "import sgmse_tpu_torch.utils.metrics, sgmse_tpu_torch.utils.p862\n"
+        "import sgmse_tpu_torch.utils.loggers, sgmse_tpu_torch.utils.inference\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
