@@ -45,17 +45,20 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    float32 device times per train step; (b) one full-width train step through
    the kernels and through the plain versions: the loss and every
    parameter's gradient agree, then its steps/s, peak memory and device
-   breakdown (``nfe_profile.train_step_profile``) with cuDNN's TF32 off and
-   on (PyTorch's default, which (d) and (e) keep); (c) every trainable
-   parameter gets a finite, non-zero gradient through the kernels; (d)
+   breakdown (``nfe_profile.train_step_profile``) with PyTorch's default
+   cuDNN TF32, as ``train.main`` runs; (c) every trainable parameter gets a
+   finite, non-zero gradient through the kernels; (d)
    ``sgmse_tpu_torch.train.main`` (``python -m sgmse_tpu_torch.train``) on a
    seeded dataset of 80 train and 2 valid 2.04-s wavs for 10 steps with
-   validation and the evaluation on 2 files, a resume from ``last`` for 2 more,
-   and ``enhance.main --ckpt`` on that checkpoint; (e) 5 steps in bfloat16.
+   validation and the evaluation on 2 files, a resume from ``last`` for 2 more
+   with the validation loss only, and ``enhance.main --ckpt`` on that
+   checkpoint; (e) 5 steps in bfloat16.
 
 Each entry-point path is driven with the launch counters set to 0 just before
-it and read just after. Details go to ``chiprun_out/chip_smoke.json``.
+it and read just after. The seconds of each phase are printed before the
+kernels line. Details go to ``chiprun_out/chip_smoke.json``.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -141,8 +144,7 @@ def counters():
     from sgmse_tpu_torch.ops import upfirdn2d as ufd
 
     k1 = ufd.upfirdn2d_cuda
-    return {"upfirdn2d": k1.launches - k1.adjoint_launches,
-            "upfirdn2d_adjoint": k1.adjoint_launches,
+    return {"upfirdn2d": k1.launches, "upfirdn2d_adjoint": k1.adjoint_launches,
             "group_norm_act": gn.group_norm_act_cuda.launches,
             "group_norm_act_bwd": gn.group_norm_act_bwd_cuda.launches}
 
@@ -427,20 +429,15 @@ def train_step_checks(dev, report):
         raise AssertionError(f"train step launches {moved}, expected {TRAIN_LAUNCHES}")
     del grads, refs
     torch.cuda.empty_cache()
-    profiles = {}
-    for tf32 in (False, True):  # strict float32, then PyTorch's default for cuDNN
-        torch.backends.cudnn.allow_tf32 = tf32
-        prof = profiles["tf32" if tf32 else "f32"] = nfe_profile.train_step_profile(
-            model, OUT_DIR)
-        print(f"train step profile, cuDNN TF32 {'on' if tf32 else 'off'}: "
-              f"{prof['steps_per_s']:.3f} steps/s, {prof['samples_per_s']:.2f} samples/s "
-              f"(wall {prof['wall_ms']:.1f} ms per step), device busy {prof['busy_ms']:.1f} ms, "
-              f"idle {prof['idle_share_untraced']:.1%} untraced, {prof['launches']:.0f} "
-              f"launches, peak {prof['peak_gib']:.2f} GiB; kinds "
-              + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in prof["kinds"].items()))
-    torch.backends.cudnn.allow_tf32 = False
+    with cudnn_tf32():
+        prof = nfe_profile.train_step_profile(model, OUT_DIR)
+    print(f"train step profile, cuDNN TF32 on: {prof['steps_per_s']:.3f} steps/s, "
+          f"{prof['samples_per_s']:.2f} samples/s (wall {prof['wall_ms']:.1f} ms per step), "
+          f"device busy {prof['busy_ms']:.1f} ms, idle {prof['idle_share_untraced']:.1%} "
+          f"untraced, {prof['launches']:.0f} launches, peak {prof['peak_gib']:.2f} GiB; kinds "
+          + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in prof["kinds"].items()))
     report["train_step"] = dict(loss=loss, loss_plain=loss_ref, worst_leaf=worst,
-                                key_bias_noise=key_bias, launches=moved, profile=profiles)
+                                key_bias_noise=key_bias, launches=moved, profile=prof)
     del model
     torch.cuda.empty_cache()
 
@@ -465,21 +462,24 @@ def write_train_set(root: Path):
             write_wav(root / subset / "noisy" / f"u{i:03d}.wav", noisy.astype(np.float32), 16000)
 
 
+@contextlib.contextmanager
+def cudnn_tf32():
+    """PyTorch's default cuDNN TF32 for the duration, as ``train.main`` runs
+    (the kernel checks keep float32 strict)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def train_entry_point(tmp: Path, report, launches_by_path):
     """Phases 9d and 9e: ``train.main`` (``python -m sgmse_tpu_torch.train``) at
     the JAX defaults, its resume and ``enhance.main --ckpt`` on its checkpoint,
     then a short bfloat16 run; each with the counters set to 0 just before.
     They run as a user runs them, with PyTorch's default cuDNN TF32."""
-    import torch
-
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        _train_entry_point(tmp, report, launches_by_path)
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-
-
-def _train_entry_point(tmp: Path, report, launches_by_path):
     import torch
     from sgmse_tpu_torch import enhance, train
 
@@ -487,6 +487,7 @@ def _train_entry_point(tmp: Path, report, launches_by_path):
     write_train_set(root)
     argv = ["--base_dir", str(root), "--log_dir", str(tmp / "train_logs"), "--nolog",
             "--num_workers", "4"]
+    valid_loss = expect(NETS["ncsnpp"]["launches"])  # one batch of the 2 valid files
     validation = expect(NETS["ncsnpp"]["launches"], 1 + EVAL_NFE)  # valid loss + eval
 
     def run(what, extra, steps, valid):
@@ -517,12 +518,13 @@ def _train_entry_point(tmp: Path, report, launches_by_path):
               next((tmp / "train_logs" / "sgmse").glob("version_*/metrics.jsonl"))
               .read_text().splitlines()]
     rate = [r["samples_per_sec"] for r in logged if "samples_per_sec" in r]
-    print(f"  logged samples/s over the {TRAIN_STEPS} steps (first step's set-up and the data "
-          f"loading included): {rate}; checkpoints {made}")
+    print(f"  logged over the {TRAIN_STEPS} steps (the first step's set-up and the data loading "
+          f"included): {rate} samples/s, {[r / TRAIN_B for r in rate]} steps/s; checkpoints "
+          f"{made}")
     main_run["logged_samples_per_sec"] = rate
     resumed = run("train resume", ["--max_steps", str(TRAIN_STEPS + RESUME_STEPS),
-                                   "--num_eval_files", str(VALID_FILES), "--ckpt",
-                                   str(ckpt_dir / "last")], RESUME_STEPS, validation)
+                                   "--num_eval_files", "0", "--ckpt", str(ckpt_dir / "last")],
+                  RESUME_STEPS, valid_loss)
     if not resumed["step"] == resumed["num_updates"] == TRAIN_STEPS + RESUME_STEPS:
         raise AssertionError(f"resume: step {resumed['step']}, num_updates "
                              f"{resumed['num_updates']}")
@@ -540,8 +542,7 @@ def _train_entry_point(tmp: Path, report, launches_by_path):
             or launches != expect(NETS["ncsnpp"]["launches"], evals)):
         raise AssertionError(f"enhance --ckpt: {es}, launches {launches}")
     bf16 = run("train bf16", ["--max_steps", str(BF16_STEPS), "--num_eval_files", "0",
-                              "--precision", "bfloat16"], BF16_STEPS,
-               expect(NETS["ncsnpp"]["launches"]))
+                              "--precision", "bfloat16"], BF16_STEPS, valid_loss)
     launches_by_path.update(train=main_run["launches"], train_resume=resumed["launches"],
                             train_enhance=launches, train_bf16=bf16["launches"])
     report["train_entry_point"] = dict(main=main_run, resume=resumed, enhance=es, bf16=bf16)
@@ -617,6 +618,14 @@ def against_plain(what, run):
 
 
 def main():
+    phases, t_phase = {}, time.time()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.time()
+        phases[name] = round(now - t_phase, 1)
+        t_phase = now
+
     card = card_identity()
     import torch
 
@@ -636,6 +645,7 @@ def main():
     print(f"build: {report['build_s']:.1f} s -> {so.relative_to(ROOT)}")
     (OUT_DIR / "build.log").write_text((so.parent / "build.log").read_text()
                                        if (so.parent / "build.log").exists() else "cached\n")
+    lap("1-2 card, build")
 
     # --- 3-4. kernels vs plain at every full-width signature; full forwards ----------------
     from sgmse_tpu_torch import convert, kernel_times as kt
@@ -656,6 +666,7 @@ def main():
         torch.cuda.empty_cache()
         len_16k, len_48k = write_wavs(tmp / "noisy_16000", 16000), write_wavs(tmp / "noisy_48000",
                                                                               48000)
+        lap("3-4 kernels, forwards")
 
         # --- 5. flagship main path through the entry point --------------------------------
         report["main_path"], wavs = entry_point(
@@ -670,6 +681,7 @@ def main():
 
         report["short_enhance"] = against_plain("short PC enhance", lambda: model.enhance(
             short, generator=seeded(1), N=5, corrector="ald", snr=0.5, timeit=True)[:2])
+        lap("5 main path")
 
         # --- 6. Schroedinger-bridge path -----------------------------------------------------
         sb_config = ScoreModel("ncsnpp_v2", "sbve", loss_type="data_prediction").config_dict()
@@ -686,6 +698,7 @@ def main():
             short, generator=seeded(2), sampler_type="sde", pad_mode="reflection",
             timeit=True)[:2])
         del sb_model
+        lap("6 bridge")
 
         # --- 7. 48 kHz path ---------------------------------------------------------------
         config_48k = ScoreModel("ncsnpp_48k", "ouve", **CONFIG_48K).config_dict()
@@ -701,6 +714,7 @@ def main():
             48000, len_48k, 60, NETS["ncsnpp_48k"]["launches"])
         report["path_48k"]["F"], report["path_48k"]["T"] = spec_48k.num_freqs, frames
         launches_by_path["48k"] = report["path_48k"]["launches"]
+        lap("7 48 kHz")
 
         # --- 8. the remaining samplers, short input, f32, kernels vs plain ----------------
         samplers = {
@@ -734,16 +748,22 @@ def main():
         report["chunked"] = dict(stats, enhance_long=against_plain(
             "enhance_long of 5 s in 2-s chunks", lambda: model.enhance_long(
                 long_wav, chunk_seconds=2.0, generator=seeded(7), N=5, timeit=True)[:2]))
+        lap("8 samplers")
 
         # --- 9. training ------------------------------------------------------------------
         del model
         torch.cuda.empty_cache()
         train_rows = train_kernel_checks(dev, report)
+        lap("9a backward kernels")
         train_step_checks(dev, report)
-        train_entry_point(tmp, report, launches_by_path)
+        lap("9b-c train step")
+        with cudnn_tf32():
+            train_entry_point(tmp, report, launches_by_path)
+        lap("9d-e train entry point")
 
     summary = summarize(rows, train_rows, launches_by_path)
-    report["kernels"] = summary
+    report["kernels"], report["phase_s"] = summary, phases
+    print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -101,16 +101,19 @@ def routed(calls=None, plain=False):
         args = (x, gamma, beta, num_groups, eps, silu)
         return fn(*args) if pre_bias is None else fn(*args, pre_bias)
 
-    def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+    def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0), **adjoint):
         if calls is not None:
             calls.append(("upfirdn2d", (tuple(x.shape), up, down, tuple(pad), taps(kernel), 1)))
-        return (ufd.upfirdn2d_plain if plain else orig["u"])(x, kernel, up, down, pad)
+        if plain:
+            return ufd.upfirdn2d_plain(x, kernel, up, down, pad)
+        return orig["u"](x, kernel, up, down, pad, **adjoint)
 
-    def upfirdn2d_pair(x0, x1, kernel, up=1, down=1, pad=(0, 0)):
+    def upfirdn2d_pair(x0, x1, kernel, up=1, down=1, pad=(0, 0), **adjoint):
         if calls is not None:
             calls.append(("upfirdn2d", (tuple(x0.shape), up, down, tuple(pad), taps(kernel), 2)))
-        return (ufd.upfirdn2d_pair_plain if plain else orig["pair"])(x0, x1, kernel, up, down,
-                                                                     pad)
+        if plain:
+            return ufd.upfirdn2d_pair_plain(x0, x1, kernel, up, down, pad)
+        return orig["pair"](x0, x1, kernel, up, down, pad, **adjoint)
 
     def group_norm_act_bwd(dy, x, gamma, beta, stats, num_groups, eps=1e-6, silu=True,
                            pre_bias=None):

@@ -381,19 +381,6 @@ class ScoreModel(nn.Module):
             return out, nfe, (time.time() - start) / (y_wav.shape[-1] / self.sr)
         return out
 
-    def enhance_eval(self, y_wav, generator: Optional[torch.Generator] = None,
-                     sampler_type: Optional[str] = None, predictor: str = "reverse_diffusion",
-                     corrector: str = "ald", N: int = 30, corrector_steps: int = 1,
-                     snr: float = 0.5, pad_mode: str = "zero_pad"):
-        """Enhancement for the in-training evaluation (JAX ``enhance_eval``):
-        :meth:`enhance` with the module's current (EMA) weights. The JAX package
-        needs a separate jitted program with the weights as arguments; eager
-        PyTorch does not. On SBVE it ignores ``N`` and runs the SDE's own
-        ``sde.N`` steps, as :meth:`enhance` does."""
-        return self.enhance(y_wav, generator=generator, sampler_type=sampler_type,
-                            predictor=predictor, corrector=corrector, N=N,
-                            corrector_steps=corrector_steps, snr=snr, pad_mode=pad_mode)
-
     # --- config round trip (the config.json of a JAX checkpoint) -------------------------
     def config_dict(self) -> dict:
         """The JAX ``ScoreModel.config_dict()`` of this model."""

@@ -80,9 +80,11 @@ def upfirdn2d_plain(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
 
 
 def _launch(xs: Sequence[torch.Tensor], kernel: Kernel, up: int, down: int,
-            pad: Tuple[int, int]) -> list:
+            pad: Tuple[int, int], adjoint: bool = False) -> list:
     """Launch the hand-written kernel once on one tensor or a pair of tensors of
-    the same shape, dtype and device; raises on anything it does not take."""
+    the same shape, dtype and device; raises on anything it does not take.
+    Counts the launch in ``upfirdn2d_cuda.adjoint_launches`` if it computes a
+    backward (``adjoint``), else in ``upfirdn2d_cuda.launches``."""
     k = np.ascontiguousarray(kernel, dtype=np.float32)
     pad0, pad1 = pad
     x = xs[0]
@@ -114,7 +116,10 @@ def _launch(xs: Sequence[torch.Tensor], kernel: Kernel, up: int, down: int,
         k.ctypes.data, k.shape[0], k.shape[1], b, h, w, c, oh, ow, up, down, pad0,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "upfirdn2d kernel")
-    upfirdn2d_cuda.launches += 1
+    if adjoint:
+        upfirdn2d_cuda.adjoint_launches += 1
+    else:
+        upfirdn2d_cuda.launches += 1
     return ys
 
 
@@ -123,8 +128,9 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
     """Launch the hand-written kernel. Takes a CUDA tensor (B, C, H, W) in
     channels_last memory, float32 or bfloat16, C a multiple of 4, up and down in
     {1, 2} and an FIR of at most 4x4; raises on anything else. Its ``launches``
-    counts the launches of this function and of :func:`upfirdn2d_pair_cuda`, and
-    its ``adjoint_launches`` those of them that computed a backward."""
+    counts the forward launches of this function and of
+    :func:`upfirdn2d_pair_cuda`, its ``adjoint_launches`` the launches that
+    computed a backward (:func:`_adjoint`)."""
     return _launch([x], kernel, up, down, pad)[0]
 
 
@@ -146,14 +152,12 @@ def upfirdn2d_pair_plain(x0: torch.Tensor, x1: torch.Tensor, kernel: Kernel, up:
 
 
 def _forward(xs: Sequence[torch.Tensor], kernel: Kernel, up: int, down: int,
-             pad: Tuple[int, int]) -> tuple:
+             pad: Tuple[int, int], adjoint: bool = False) -> tuple:
     """upfirdn2d of one tensor or a pair, on the device of the first: the kernel
     on CUDA, the plain version on the CPU. No autograd."""
     x = xs[0]
     if x.device.type == "cuda":
-        if len(xs) == 2:
-            return upfirdn2d_pair_cuda(xs[0], xs[1], kernel, up, down, pad)
-        return (upfirdn2d_cuda(x, kernel, up, down, pad),)
+        return tuple(_launch(xs, kernel, up, down, pad, adjoint))
     if x.device.type == "cpu":
         return tuple(upfirdn2d_plain(t, kernel, up, down, pad) for t in xs)
     raise ValueError(f"upfirdn2d: unsupported device {x.device}")
@@ -177,18 +181,17 @@ def adjoint_args(in_hw: Tuple[int, int], out_hw: Tuple[int, int], kernel: Kernel
 
 def _adjoint(dys: Sequence[torch.Tensor], ctx) -> tuple:
     """Gradients of the inputs of a (pair) upfirdn2d from its outputs' gradients,
-    through the dispatcher: one kernel launch on the card. Gradients arrive in
-    any memory format and are made channels_last for the launch."""
+    through the dispatcher: one kernel launch on the card, counted as an
+    adjoint launch. Gradients arrive in any memory format and are made
+    channels_last for the launch."""
     kernel, kw, crop = adjoint_args(ctx.in_hw, ctx.out_hw, ctx.kernel, ctx.up, ctx.down,
                                     ctx.pad)
     dys = [torch.zeros(ctx.out_shape, dtype=ctx.dtype, device=ctx.device) if d is None
            else d.contiguous(memory_format=torch.channels_last) for d in dys]
     if len(dys) == 2:
-        dxs = upfirdn2d_pair(dys[0], dys[1], kernel, **kw)
+        dxs = upfirdn2d_pair(dys[0], dys[1], kernel, adjoint=True, **kw)
     else:
-        dxs = (upfirdn2d(dys[0], kernel, **kw),)
-    if dxs[0].device.type == "cuda":
-        upfirdn2d_cuda.adjoint_launches += 1  # of upfirdn2d_cuda.launches, the backward's
+        dxs = (upfirdn2d(dys[0], kernel, adjoint=True, **kw),)
     if crop is not None:
         dxs = tuple(d[:, :, :crop[0], :crop[1]].contiguous(memory_format=torch.channels_last)
                     for d in dxs)
@@ -216,21 +219,22 @@ def _needs_grad(*xs) -> bool:
 
 
 def upfirdn2d(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1,
-              pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+              pad: Tuple[int, int] = (0, 0), adjoint: bool = False) -> torch.Tensor:
     """upfirdn2d on (B, C, H, W), same up/down/pad on both spatial axes;
-    differentiable in x (the adjoint is one more upfirdn2d)."""
+    differentiable in x (the adjoint is one more upfirdn2d). ``adjoint`` marks
+    the call of a backward, for the launch counters."""
     if _needs_grad(x):
         return _UpFirDn2d.apply(kernel, up, down, pad, x)
-    return _forward([x], kernel, up, down, pad)[0]
+    return _forward([x], kernel, up, down, pad, adjoint)[0]
 
 
 def upfirdn2d_pair(x0: torch.Tensor, x1: torch.Tensor, kernel: Kernel, up: int = 1,
-                   down: int = 1, pad: Tuple[int, int] = (0, 0)):
+                   down: int = 1, pad: Tuple[int, int] = (0, 0), adjoint: bool = False):
     """upfirdn2d of two tensors of the same shape (a res-block's h and skip x);
     differentiable in both, with one pair launch for the two gradients."""
     if _needs_grad(x0, x1):
         return _UpFirDn2d.apply(kernel, up, down, pad, x0, x1)
-    return _forward([x0, x1], kernel, up, down, pad)
+    return _forward([x0, x1], kernel, up, down, pad, adjoint)
 
 
 def _upsample_args(k: Kernel, factor: int, gain: float):

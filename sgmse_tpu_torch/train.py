@@ -17,8 +17,9 @@ eps=1e-8)`` (optax.adam's update) and then the EMA with torch_ema's ramp
 min(decay, (1 + n) / (10 + n)). ``--accumulate_grad_batches k`` follows
 optax.MultiSteps: the running mean of k gradients is applied on every k-th
 step, while the step count, ``num_updates`` and the EMA advance on every
-step. ``--steps_per_execution k`` runs k ordinary steps between log and
-checkpoint checks, as the JAX trainer's scanned executions do.
+step. ``--steps_per_execution`` is accepted for the JAX CLI's sake: the JAX
+trainer scans k steps in one program, and here every step is an ordinary
+step either way.
 
 Each epoch ends with validation on the EMA weights: the loss over the valid
 split and, with ``--num_eval_files`` > 0, PESQ / SI-SDR / ESTOI of that many
@@ -197,8 +198,7 @@ class Trainer:
     def __init__(self, model: ScoreModel, data_module: SpecsDataModule, logger: Logger,
                  log_dir: str = "logs", max_epochs: int = -1, max_steps: int = -1,
                  accumulate_grad_batches: int = 1, save_ckpt_interval: int = 50000,
-                 log_every_n_steps: int = 10, seed: int = 0, steps_per_execution: int = 1,
-                 device=None):
+                 log_every_n_steps: int = 10, seed: int = 0, device=None):
         self.model = model
         self.data_module = data_module
         self.logger = logger
@@ -207,7 +207,6 @@ class Trainer:
         self.accumulate_grad_batches = accumulate_grad_batches
         self.log_every_n_steps = log_every_n_steps
         self.seed = seed
-        self.steps_per_execution = max(1, int(steps_per_execution))
         self.device = torch.device(device if device is not None else "cuda")
         self.ckpt_dir = Path(log_dir) / str(logger.version)
         self.policies = CheckpointPolicies(self.ckpt_dir, save_ckpt_interval,
@@ -234,66 +233,39 @@ class Trainer:
         config = model.config_dict()
         self.logger.log_hparams(config)
 
-        epoch, step = 0, state.step
-        self.policies.start_from(step)
-        running, running_samples, last_log = [], 0, step
-        t_start = time.time()
+        self.policies.start_from(state.step)
+        epoch, running, running_samples, t_start = 0, [], 0, time.time()
         done = False
-        spe = self.steps_per_execution
 
-        def after_execution(losses, batch_size):
-            nonlocal step, running_samples, last_log, t_start, done
-            step += len(losses)
-            running.extend(losses)
-            running_samples += len(losses) * batch_size
-            n = self.log_every_n_steps
-            if step // n > last_log // n:
-                values = torch.stack(running).tolist()  # one wait for the device
-                rate = running_samples / (time.time() - t_start)
-                self.history.extend(zip(range(step - len(values) + 1, step + 1), values))
-                avg = float(np.mean(values))
-                self.logger.log_metrics({"train_loss": avg, "samples_per_sec": rate}, step)
-                print(f"step {step}: train_loss={avg:.4f} ({rate:.1f} samples/s)", flush=True)
-                running.clear()
-                running_samples, last_log, t_start = 0, step, time.time()
-            self.policies.on_train_step(step, state.tree(), config)
-            if self.max_steps >= 0 and step >= self.max_steps:
-                done = True
+        def log_running():  # the losses since the last log point: one wait for the device
+            values = torch.stack(running).tolist()
+            self.history.extend(zip(range(state.step - len(values) + 1, state.step + 1), values))
+            running.clear()
+            return values
 
-        buffer = []
-
-        def run(batches):
-            return [train_step(model, state, bx, by, generator) for bx, by in batches]
-
-        def flush_buffer_single():
-            while buffer and not done:
-                bx, by = buffer.pop(0)
-                after_execution(run([(bx, by)]), bx.shape[0])
-
-        while not done:
-            if self.max_epochs >= 0 and epoch >= self.max_epochs:
-                break
+        while not done and not (self.max_epochs >= 0 and epoch >= self.max_epochs):
             for x_wav, y_wav in train_loader:
-                room = (self.max_steps - step) if self.max_steps >= 0 else None
-                buffer.append((x_wav, y_wav))
-                if spe > 1 and (room is None or room >= spe):
-                    if len(buffer) == spe:
-                        batches = list(buffer)
-                        buffer.clear()
-                        after_execution(run(batches), x_wav.shape[0])
-                else:
-                    flush_buffer_single()
+                running.append(train_step(model, state, x_wav, y_wav, generator))
+                running_samples += x_wav.shape[0]
+                if state.step % self.log_every_n_steps == 0:
+                    avg = float(np.mean(log_running()))
+                    rate = running_samples / (time.time() - t_start)
+                    self.logger.log_metrics({"train_loss": avg, "samples_per_sec": rate},
+                                            state.step)
+                    print(f"step {state.step}: train_loss={avg:.4f} ({rate:.1f} samples/s)",
+                          flush=True)
+                    running_samples, t_start = 0, time.time()
+                self.policies.on_train_step(state.step, state.tree(), config)
+                done = self.max_steps >= 0 and state.step >= self.max_steps
                 if done:
                     break
-            flush_buffer_single()  # epoch tail: a partial block runs as single steps
             if not done:
                 epoch += 1
             self.metrics = self.validate(state, valid_loader, generator)
-            self.logger.log_metrics(self.metrics, step)
-            self.policies.on_validation(step, state.tree(), config, self.metrics)
+            self.logger.log_metrics(self.metrics, state.step)
+            self.policies.on_validation(state.step, state.tree(), config, self.metrics)
         if running:  # steps after the last log point
-            values = torch.stack(running).tolist()
-            self.history.extend(zip(range(step - len(values) + 1, step + 1), values))
+            log_running()
         return state
 
     def validate(self, state: TrainState, valid_loader, generator=None) -> Dict[str, float]:
@@ -358,8 +330,8 @@ def build_parser(argv=None):
     trainer_parser.add_argument("--max_steps", type=int, default=-1,
                                 help="Number of steps to train (-1 = unlimited).")
     trainer_parser.add_argument("--steps_per_execution", type=int, default=1,
-                                help="Train steps between log and checkpoint checks (each "
-                                     "an ordinary step here).")
+                                help="Accepted for the JAX CLI's sake; every step is an "
+                                     "ordinary step here.")
     trainer_parser.add_argument("--seed", type=int, default=0,
                                 help="Seeds the parameter init, the diffusion-time, noise "
                                      "and dropout draws, and the data loader's shuffle and "
@@ -398,7 +370,7 @@ def main(argv=None, device=None) -> dict:
                       max_epochs=args.max_epochs, max_steps=args.max_steps,
                       accumulate_grad_batches=args.accumulate_grad_batches,
                       save_ckpt_interval=args.save_ckpt_interval, seed=args.seed,
-                      steps_per_execution=args.steps_per_execution, device=device)
+                      device=device)
     t0 = time.time()
     state = trainer.fit(ckpt_path=args.ckpt)
     return dict(step=state.step, num_updates=state.num_updates, ckpt_dir=str(trainer.ckpt_dir),

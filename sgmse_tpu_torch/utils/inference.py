@@ -58,10 +58,11 @@ def evaluate_model(model, clean_files: Sequence[str], noisy_files: Sequence[str]
     return the mean pesq / si_sdr / estoi.
 
     Files are bucketed by padded spectrogram length and enhanced ``batch_size``
-    at a time (``model.enhance_eval``); metrics are computed per file on the
-    host. A NaN score (e.g. PESQ of a silent clip) is left out of that
-    metric's mean only. With ``return_sums`` the dict holds ``{metric: (sum,
-    count)}`` instead.
+    at a time (``model.enhance``: the JAX package's ``enhance_eval``, which
+    takes the weights as arguments of one compiled program, has nothing to do
+    in eager PyTorch); metrics are computed per file on the host. A NaN score
+    (e.g. PESQ of a silent clip) is left out of that metric's mean only. With
+    ``return_sums`` the dict holds ``{metric: (sum, count)}`` instead.
     """
     sr = sr if sr is not None else model.sr
     clean_sel, noisy_sel = select_eval_files(clean_files, noisy_files, num_eval_files)
@@ -89,8 +90,8 @@ def evaluate_model(model, clean_files: Sequence[str], noisy_files: Sequence[str]
             chunk = group[i:i + batch_size]
             maxlen = max(len(y) for _, y, _ in chunk)
             yb = np.stack([np.pad(y, (0, maxlen - len(y))) for _, y, _ in chunk])
-            x_hat_b = model.enhance_eval(yb, generator=generator, N=N, snr=snr,
-                                         corrector_steps=corrector_steps)
+            x_hat_b = model.enhance(yb, generator=generator, N=N, snr=snr,
+                                    corrector_steps=corrector_steps)
             for (x, y, sr_x), x_hat_padded in zip(chunk, x_hat_b):
                 x_hat = np.asarray(x_hat_padded)[: len(y)]
                 x_16k = resample(x, sr_x, 16000) if sr_x != 16000 else x

@@ -191,10 +191,11 @@ def test_upfirdn2d_backward_kernel_matches_plain(dev, dtype, shape, up, pair):
     xs = [_input(shape, dtype, dev, seed=i).requires_grad_() for i in range(1 + pair)]
     ys = ufd.upfirdn2d_pair(*xs, k, **kw) if pair else (ufd.upfirdn2d(xs[0], k, **kw),)
     dys = [_input(y.shape, dtype, dev, seed=5 + i) for i, y in enumerate(ys)]
-    before = ufd.upfirdn2d_cuda.launches
+    before = (ufd.upfirdn2d_cuda.launches, ufd.upfirdn2d_cuda.adjoint_launches)
     grads = torch.autograd.grad(ys, xs, dys)
     torch.cuda.synchronize()
-    assert ufd.upfirdn2d_cuda.launches == before + 1
+    assert (ufd.upfirdn2d_cuda.launches, ufd.upfirdn2d_cuda.adjoint_launches) == (
+        before[0], before[1] + 1)
     plain = [x.detach().clone().requires_grad_() for x in xs]
     refs = torch.autograd.grad([ufd.upfirdn2d_plain(p, k, **kw) for p in plain], plain, dys)
     for g, r in zip(grads, refs):

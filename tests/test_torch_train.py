@@ -218,8 +218,11 @@ def test_checkpoint_exports_to_the_jax_network(wav_dataset, tmp_path):
 
 
 def test_entry_points_train_then_enhance_from_the_checkpoint(wav_dataset, tmp_path):
+    """``--steps_per_execution`` is accepted and every step is an ordinary one:
+    the run stops at ``--max_steps`` 1 inside a block of 2."""
     stats = train.main(["--base_dir", str(wav_dataset), "--log_dir", str(tmp_path / "logs"),
-                        "--max_steps", "1", "--num_eval_files", "0", *CLI], device="cpu")
+                        "--max_steps", "1", "--num_eval_files", "0", "--steps_per_execution",
+                        "2", *CLI], device="cpu")
     assert stats["step"] == 1 and stats["device"] == "cpu" and "valid_loss" in stats["metrics"]
     ckpt = f"{stats['ckpt_dir']}/last"
     out = enhance.main(["--test_dir", str(wav_dataset / "valid" / "noisy"), "--enhanced_dir",
@@ -238,17 +241,20 @@ def test_train_entry_point_needs_a_card_and_one_device(wav_dataset, tmp_path, mo
 
 
 def test_enhance_eval_on_sbve_ignores_n():
+    """The in-training evaluation (JAX ``enhance_eval``) enhances through
+    ``ScoreModel.enhance``, which on SBVE runs the SDE's own ``sde.N`` steps
+    whatever ``N`` it is given, and on OUVE follows ``N``."""
     model = ScoreModel("ncsnpp_v2", "sbve", loss_type="data_prediction", N=3, **NET, **STFT)
     model.init_params(torch.Generator().manual_seed(0))
     model.eval()
     y = (0.1 * np.random.default_rng(0).standard_normal((1, 2016))).astype(np.float32)
-    runs = [model.enhance_eval(y, generator=torch.Generator().manual_seed(1), N=n)
+    runs = [model.enhance(y, generator=torch.Generator().manual_seed(1), N=n)
             for n in (5, 9)]
     np.testing.assert_array_equal(runs[0], runs[1])
     ouve = _small_model()
     ouve.init_params(torch.Generator().manual_seed(0))
     ouve.eval()
-    a, b = (ouve.enhance_eval(y, generator=torch.Generator().manual_seed(1), N=n) for n in (2, 3))
+    a, b = (ouve.enhance(y, generator=torch.Generator().manual_seed(1), N=n) for n in (2, 3))
     assert not np.array_equal(a, b)
 
 

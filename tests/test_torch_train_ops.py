@@ -98,7 +98,8 @@ def test_adjoint_pads_give_back_the_input_size(in_hw, out_hw, up, down, pad):
 
 def test_backward_runs_the_dispatcher_once_per_call():
     """The adjoint goes through the same dispatcher as the forward (one kernel
-    launch on the card): a pair's two gradients in one call."""
+    launch on the card, counted as an adjoint launch): a pair's two gradients
+    in one call, marked ``adjoint``."""
     seen = []
     orig = ufd.upfirdn2d_pair
     ufd.upfirdn2d_pair = lambda *a, **kw: seen.append(kw) or orig(*a, **kw)
@@ -109,7 +110,7 @@ def test_backward_runs_the_dispatcher_once_per_call():
         torch.autograd.grad(outs, xs, [torch.ones_like(o) for o in outs])
     finally:
         ufd.upfirdn2d_pair = orig
-    assert seen == [dict(up=2, down=1, pad=(2, 1))]
+    assert seen == [dict(up=2, down=1, pad=(2, 1), adjoint=True)]
 
 
 def _flax_vjp(x, scale, bias, dy, silu, pre_bias=None):
