@@ -436,6 +436,12 @@ def train_step_checks(dev, report):
           f"device busy {prof['busy_ms']:.1f} ms, idle {prof['idle_share_untraced']:.1%} "
           f"untraced, {prof['launches']:.0f} launches, peak {prof['peak_gib']:.2f} GiB; kinds "
           + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in prof["kinds"].items()))
+    k2b = prof["kinds"].get("K2b group_norm_act_bwd", dict(ms=0.0, launches=0.0))
+    per_call = k2b["launches"] / TRAIN_LAUNCHES["group_norm_act_bwd"]
+    print(f"K2b in the profiled step: {k2b['ms']:.3f} ms of device time, {k2b['launches']:.0f} "
+          f"kernels for {TRAIN_LAUNCHES['group_norm_act_bwd']} calls ({per_call:g} per call)")
+    if per_call != 1:
+        raise AssertionError(f"K2b ran {per_call:g} kernels per call, expected one")
     report["train_step"] = dict(loss=loss, loss_plain=loss_ref, worst_leaf=worst,
                                 key_bias_noise=key_bias, launches=moved, profile=prof)
     del model

@@ -105,6 +105,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Close the group of this thread's cp.async copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `n` of this thread's committed groups are still in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
 // The largest dynamic shared memory a block of this device may opt into, set
 // once on `kernel` (needed above 48 KB).
 template <typename Kernel>

@@ -2,9 +2,12 @@
 
 The port's copy of ``sgmse_tpu/data/dataset.py`` (that module cannot be
 imported without JAX, because importing ``sgmse_tpu`` imports it), with its
-numpy seeding unchanged, so that a seed gives the JAX package's batches bit
-for bit. The host loads, crops, pads and normalizes waveforms; the STFT and
-the compression transform run batched on the device inside the train step.
+numpy seeding unchanged, so that a seed gives the batches of the JAX
+package's Python path (``WavLoader(..., use_native=False)``) bit for bit. They
+are not the batches of the JAX training CLI's default, the native loader
+(``use_native=True``), which draws its crops otherwise and which the port does
+not have yet. The host loads, crops, pads and normalizes waveforms; the STFT
+and the compression transform run batched on the device inside the train step.
 
 Directory layout as the reference's: ``{base_dir}/{train,valid,test}/
 {clean,noisy}/*.wav`` for format 'default', ``{anechoic,reverb}`` for

@@ -102,7 +102,7 @@ def lib() -> ctypes.CDLL:
     handle.sgmse_upfirdn2d.restype = i
     handle.sgmse_group_norm_act.argtypes = [p] * 7 + [i] * 5 + [f, i, i, p]
     handle.sgmse_group_norm_act.restype = i
-    handle.sgmse_group_norm_act_bwd.argtypes = [p] * 12 + [i] * 5 + [f, i, i, p]
+    handle.sgmse_group_norm_act_bwd.argtypes = [p] * 14 + [i] * 11 + [f, i, i, p]
     handle.sgmse_group_norm_act_bwd.restype = i
     handle.sgmse_error_string.argtypes = [i]
     handle.sgmse_error_string.restype = ctypes.c_char_p

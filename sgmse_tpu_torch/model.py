@@ -124,8 +124,14 @@ class ScoreModel(nn.Module):
         self.loss_weighting, self.l1_weight, self.pesq_weight = (loss_weighting, l1_weight,
                                                                  pesq_weight)
         self.backbone = backbone
+        self.spec = spec if spec is not None else SpecTransform(
+            **{k: v for k, v in kwargs.items() if k in _SPEC_KEYS})
+        # Attention levels follow the STFT's frequency bins, as the JAX parameter
+        # tree follows the input it is initialised with; image_size stays a config
+        # value (JAX never reads it).
         dnn_cls = BackboneRegistry.get_by_name(backbone)
-        self.dnn = dnn_cls(**_filter_kwargs(dnn_cls, kwargs))
+        self.dnn = dnn_cls(**_filter_kwargs(dnn_cls, kwargs),
+                           freq_bins=self.spec.n_fft // 2 + 1)
         self.sde_name = sde
         sde_cls = SDERegistry.get_by_name(sde)
         self.sde = sde_cls(**_filter_kwargs(sde_cls, kwargs))
@@ -135,8 +141,6 @@ class ScoreModel(nn.Module):
         self.c_in_type, self.c_out_type, self.c_skip_type = c_in, c_out, c_skip
         self.sigma_data = sigma_data
         self.sr = sr
-        self.spec = spec if spec is not None else SpecTransform(
-            **{k: v for k, v in kwargs.items() if k in _SPEC_KEYS})
 
     @property
     def device(self) -> torch.device:

@@ -11,10 +11,13 @@ The complex inputs ``x_t``/``y`` of shape (B, 1, F, T) are packed into a real
 (B, 4, F, T) tensor [x.re, x.im, y.re, y.im] in channels_last memory; F plays
 the image-height role, so attention triggers on the runtime frequency height
 ``h.shape[2] in attn_resolutions``. Which levels hold attention parameters is
-fixed at construction from ``image_size`` (the frequency height the model is
-built for), as the JAX package's parameter tree is fixed by the input it was
+fixed at construction from ``freq_bins``, the frequency height the model is
+built for, as the JAX package's parameter tree is fixed by the input it was
 initialised with; a forward whose frequency height triggers attention at a
-level without parameters raises.
+level without parameters raises. The ScoreModel passes its STFT's
+``n_fft // 2 + 1``; without ``freq_bins`` the height is ``image_size``. The
+JAX package never reads ``image_size`` (its configs all say 256), so the port
+keeps it only as a config value and as that fallback.
 
 Ported branches: BigGAN res-blocks with FIR resampling, ``output_skip`` and
 ``input_skip`` pyramids combined by ``sum`` or no pyramids (``none``), swish,
@@ -85,8 +88,10 @@ class NCSNppBase(nn.Module):
         output_layer_before_sigma: bool = False,
         precision: str = "float32",
         remat: bool = False,
+        freq_bins: Optional[int] = None,
     ):
-        config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
+        config = {k: v for k, v in locals().items()
+                  if k not in ("self", "__class__", "freq_bins")}
         super().__init__()
         self.config = config
         unported = {
@@ -114,6 +119,7 @@ class NCSNppBase(nn.Module):
         self.centered = centered
         self.output_layer_before_sigma = output_layer_before_sigma
         self.image_size = image_size
+        self.freq_bins = image_size if freq_bins is None else freq_bins
         self.precision = precision
         self.remat = remat
         self.output_skip = progressive == "output_skip"
@@ -145,7 +151,7 @@ class NCSNppBase(nn.Module):
         in_ch = nf
         num_resolutions = len(self.ch_mult)
         for i_level in range(num_resolutions):
-            res = image_size // 2**i_level
+            res = self.freq_bins // 2**i_level
             for i_block in range(num_res_blocks):
                 out_ch = nf * self.ch_mult[i_level]
                 resblock(f"down_{i_level}_block{i_block}", in_ch, out_ch)
@@ -166,7 +172,7 @@ class NCSNppBase(nn.Module):
 
         h_c = in_ch
         for i_level in reversed(range(num_resolutions)):
-            res = image_size // 2**i_level
+            res = self.freq_bins // 2**i_level
             for i_block in range(num_res_blocks + 1):
                 out_ch = nf * self.ch_mult[i_level]
                 resblock(f"up_{i_level}_block{i_block}", h_c + hs_c.pop(), out_ch)
@@ -192,7 +198,7 @@ class NCSNppBase(nn.Module):
         block = self._modules.get(name)
         if block is None:
             raise RuntimeError(f"frequency height {h.shape[2]} triggers attention at {name}, "
-                               f"but the model was built for image_size {self.image_size}")
+                               f"but the model was built for {self.freq_bins} frequency bins")
         return block(h)
 
     def _resblock(self, name: str, x: torch.Tensor, temb, generator):

@@ -49,7 +49,7 @@ dpre_bias come back in x's dtype, dgamma and dbeta in float32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -187,46 +187,124 @@ def group_norm_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
 group_norm_act_cuda.launches = 0
 
 
-def bwd_blocks_per_row(b: int, hw: int, c: int, element_size: int, sms: int) -> int:
-    """K2b's blocks per batch row: about four waves of the card's SMs over the
-    batch, at least 16 KB of x per block, at most one block per pixel."""
-    by_work = -(-hw * c * element_size // (16 * 1024))
-    return max(1, min(-(-4 * sms // b), by_work, hw))
+BWD_THREADS = 512            # K2b's threads per block (kThreads in the .cu)
+BWD_SMEM_LIMIT = 232_448     # the H100's dynamic shared memory per block, opted in
+BWD_MIN_BLOCK_BYTES = 64 * 1024  # a tile's x + dy is spread over blocks down to this
+BWD_PREFETCH_BYTES = 12 * 2**20  # of the next wave's x + dy asked of L2 during a wave
+BWD_L2_TAIL_BYTES = 12 * 2**20   # of a wave's x + dy beyond shared memory, read twice
+
+
+class BwdPlan(NamedTuple):
+    """How K2b covers a call: tiles of (batch row, band of ``band`` channels)
+    over all HW pixels; ``nbt`` blocks per tile, each with ``ppb`` pixels of
+    which ``stage_pix`` are held in shared memory and ``pf_pix`` of the next
+    wave's range are prefetched into L2; ``tpw`` tiles per wave, in ``waves``
+    waves; ``grid`` = tpw * nbt blocks of ``smem`` bytes each."""
+    band: int
+    nbt: int
+    ppb: int
+    stage_pix: int
+    pf_pix: int
+    tpw: int
+    waves: int
+    grid: int
+    smem: int
+
+
+def bwd_smem_bytes(stage_pix: int, band: int, groups_per_band: int, element_size: int) -> int:
+    """A K2b block's dynamic shared memory, laid out as ``smem_bytes`` in the
+    .cu reckons it: x and dy of the staged pixels, the reduction slots (a
+    float4 per warp, or per pixel row where a row spans warps, and channel),
+    the sums, the group coefficients, gamma, the groups' variances and a flag."""
+    lanes = band * element_size // 16
+    stride = -(-lanes // 32) * 32 if lanes > 32 else 1 << (lanes - 1).bit_length()
+    rows = BWD_THREADS // 32 if stride <= 32 else BWD_THREADS // stride
+    return (2 * stage_pix * band * element_size + rows * band * 16 + band * 16
+            + groups_per_band * 16 + band * 4 + groups_per_band * 4 + 4)
+
+
+def bwd_band(c: int, groups: int, element_size: int) -> int:
+    """The narrowest run of whole groups that is whole 16-byte vectors and at
+    least 128 bytes (a cache line per pixel), with the bands dividing C; C
+    itself where no such run exists."""
+    cpg, vec = c // groups, 16 // element_size
+    for k in range(1, groups + 1):
+        band = k * cpg
+        if groups % k == 0 and band % vec == 0 and band * element_size >= 128:
+            return band
+    return c
+
+
+def bwd_plan(b: int, hw: int, c: int, groups: int, element_size: int, sms: int,
+             smem_limit: int = BWD_SMEM_LIMIT) -> BwdPlan:
+    """K2b's plan for x of (b, c, hw) on a card of ``sms`` SMs (one block per
+    SM at most). A wave holds as many tiles as the SMs' shared memory plus
+    BWD_L2_TAIL_BYTES take (evened out over the waves; one at least); each
+    tile is spread over the wave's share of the SMs, down to
+    BWD_MIN_BLOCK_BYTES of x + dy a block. What of a block's range does not fit
+    its shared memory (the tail) is read twice, the second time from L2 where
+    it is still there. Raises if a band is wider than a block's threads."""
+    band = bwd_band(c, groups, element_size)
+    if band > BWD_THREADS:
+        raise ValueError(f"group_norm_act_bwd: a band of {band} channels (C={c}, "
+                         f"groups={groups}) is wider than {BWD_THREADS}")
+    gpb = band // (c // groups)
+    pix_bytes = 2 * band * element_size
+    pmax = (smem_limit - bwd_smem_bytes(0, band, gpb, element_size)) // pix_bytes
+    tiles = b * (c // band)
+    tile_bytes = hw * pix_bytes
+    fit = (sms * pmax * pix_bytes + BWD_L2_TAIL_BYTES) // tile_bytes
+    for tpw in range(max(1, min(tiles, fit, sms)), 0, -1):
+        tpw = -(-tiles // -(-tiles // tpw))  # the same waves, evened out
+        nbt = max(1, min(sms // tpw, -(-tile_bytes // BWD_MIN_BLOCK_BYTES), hw))
+        ppb = -(-hw // nbt)
+        nbt = -(-hw // ppb)
+        stage_pix = min(ppb, pmax)
+        if tpw * nbt * (ppb - stage_pix) * pix_bytes <= BWD_L2_TAIL_BYTES:
+            break  # else fewer tiles a wave, down to one
+    pf_pix = min(stage_pix, BWD_PREFETCH_BYTES // (tpw * nbt * pix_bytes))
+    return BwdPlan(band=band, nbt=nbt, ppb=ppb, stage_pix=stage_pix, pf_pix=pf_pix, tpw=tpw,
+                   waves=-(-tiles // tpw), grid=tpw * nbt,
+                   smem=bwd_smem_bytes(stage_pix, band, gpb, element_size))
 
 
 def group_norm_act_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
                             beta: torch.Tensor, stats: torch.Tensor, num_groups: int,
                             eps: float = 1e-6, silu: bool = True,
                             pre_bias: Optional[torch.Tensor] = None):
-    """Launch K2b once (three kernels on the stream: per-block partial sums,
-    their combine per batch row, then dx): the gradients of
-    :func:`group_norm_act_bwd_plain`. dy and x: CUDA (B, C, H, W), channels_last,
-    one dtype (float32 or bfloat16), the forward's constraints on C; stats the
-    forward's float32 (B, G, 2). Raises on anything else."""
+    """Launch K2b once (one cooperative kernel, planned by :func:`bwd_plan`):
+    the gradients of :func:`group_norm_act_bwd_plain`. dy and x: CUDA
+    (B, C, H, W), channels_last, one dtype (float32 or bfloat16), the forward's
+    constraints on C; stats the forward's float32 (B, G, 2). Raises on anything
+    else."""
     _check_cuda_args("group_norm_act_bwd_cuda", x, gamma, beta, num_groups, pre_bias,
                      tensors=(("dy", dy),))
     b, c, h, w = x.shape
-    if c // (16 // x.element_size()) > 256:
-        raise ValueError(f"group_norm_act_bwd_cuda: unsupported C={c} for {x.dtype}")
     if (stats.device != x.device or stats.dtype != torch.float32
             or tuple(stats.shape) != (b, num_groups, 2) or not stats.is_contiguous()):
         raise ValueError(f"group_norm_act_bwd_cuda: stats must be a contiguous float32 "
                          f"({b}, {num_groups}, 2) tensor on {x.device}")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nb = bwd_blocks_per_row(b, h * w, c, x.element_size(), sms)
+    props = torch.cuda.get_device_properties(x.device)
+    plan = bwd_plan(b, h * w, c, num_groups, x.element_size(), props.multi_processor_count,
+                    getattr(props, "shared_memory_per_block_optin", BWD_SMEM_LIMIT))
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
     dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
     dpre_bias = None if pre_bias is None else torch.empty_like(pre_bias)
-    partial = torch.empty((b, nb, c, 4), dtype=torch.float32, device=x.device)
-    rowsum = torch.empty((b, c, 4), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((plan.grid, plan.band, 4), **f32)
+    rowsum = torch.empty((b, c, 4), **f32)
+    coefs = torch.empty((plan.waves, plan.tpw, plan.band * num_groups // c, 4), **f32)
+    sync = torch.empty((plan.waves, plan.tpw, 64), dtype=torch.int32, device=x.device)
     err = kernels.lib().sgmse_group_norm_act_bwd(
         dy.data_ptr(), x.data_ptr(), dx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         None if pre_bias is None else pre_bias.data_ptr(), stats.data_ptr(),
         None if dpre_bias is None else dpre_bias.data_ptr(), dgamma.data_ptr(),
-        dbeta.data_ptr(), partial.data_ptr(), rowsum.data_ptr(), nb, b, h * w, c, num_groups,
-        eps, int(silu), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        dbeta.data_ptr(), partial.data_ptr(), rowsum.data_ptr(), coefs.data_ptr(),
+        sync.data_ptr(), b, h * w, c, num_groups,
+        plan.band, plan.nbt, plan.ppb, plan.stage_pix, plan.pf_pix, plan.tpw, plan.waves, eps,
+        int(silu),
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "group_norm_act_bwd kernel")
     group_norm_act_bwd_cuda.launches += 1
     return dx, dgamma, dbeta, dpre_bias

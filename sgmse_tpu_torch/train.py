@@ -359,9 +359,7 @@ def main(argv=None, device=None) -> dict:
                                "torch.cuda.is_available() is false")
         device = "cuda"
     groups = _argument_groups(parser, args)
-    # The attention levels follow the training STFT's frequency bins, as the JAX
-    # parameter tree follows the input it is initialised with.
-    model = ScoreModel(backbone=args.backbone, sde=args.sde, image_size=args.n_fft // 2 + 1,
+    model = ScoreModel(backbone=args.backbone, sde=args.sde,
                        **{**groups["ScoreModel"], **groups["SDE"], **groups["Backbone"],
                           **groups["DataModule"]})
     data_module = SpecsDataModule(**groups["DataModule"], seed=args.seed)

@@ -140,10 +140,18 @@ def _grad_tol(t):
                                              ((2, 16, 5, 7), True, False),
                                              ((4, 512, 4, 4), True, True),
                                              ((2, 128, 64, 64), True, True),
-                                             ((2, 256, 16, 16), False, False)])
+                                             ((2, 256, 16, 16), False, False),
+                                             ((8, 128, 128, 128), True, True),
+                                             ((2, 384, 32, 32), True, True),
+                                             ((2, 512, 64, 64), False, True),
+                                             ((3, 256, 33, 17), True, True),
+                                             ((1, 128, 768, 256), True, False)])
 def test_group_norm_act_bwd_kernel_matches_plain(dev, dtype, shape, silu, bias):
     """K2b against the plain formula on the same dy, x and forward statistics;
-    the statistics K2 writes against the plain forward's; bit-for-bit repeats."""
+    the statistics K2 writes against the plain forward's; bit-for-bit repeats.
+    The shapes span one wave and several (8 x 128 x 128^2), C = 384 and 512,
+    odd H x W, and a tile larger than the chip's shared memory (128 x 768 x
+    256, the 48 kHz top level), whose blocks read part of their range twice."""
     x = _input(shape, dtype, dev) * 2.0 + 0.5
     dy = _input(shape, dtype, dev, seed=3)
     b, c = shape[:2]
@@ -173,6 +181,28 @@ def test_group_norm_act_bwd_kernel_matches_plain(dev, dtype, shape, silu, bias):
         assert err <= _grad_tol(r) * r.float().abs().max().item(), (name, err)
     again = gn.group_norm_act_bwd(dy, x, gamma, beta, stats, groups, 1e-6, silu, pre_bias)
     assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_act_bwd_kernel_clamp_matches_plain(dev, dtype):
+    """Groups whose variance before the clamp is exactly 0 (f = 1/2) and below
+    0 (f = 0) in batch row 0, on odd H x W over several blocks per tile."""
+    shape = (2, 128, 65, 63)
+    x = _input(shape, dtype, dev)
+    dy = _input(shape, dtype, dev, seed=3)
+    g = torch.Generator(device=dev).manual_seed(1)
+    gamma = 1.0 + 0.1 * torch.randn(128, generator=g, device=dev)
+    beta = 0.1 * torch.randn(128, generator=g, device=dev)
+    pre_bias = torch.randn(2, 128, generator=g, device=dev).to(dtype)
+    groups = gn.num_groups_for(128)
+    _, stats = gn.group_norm_act_plain(x, gamma, beta, groups, 1e-6, True, pre_bias,
+                                       return_stats=True)
+    stats[0, 0, 1], stats[0, 5, 1] = 0.0, -1e-7
+    got = gn.group_norm_act_bwd(dy, x, gamma, beta, stats, groups, 1e-6, True, pre_bias)
+    ref = gn.group_norm_act_bwd_plain(dy, x, gamma, beta, stats, groups, 1e-6, True, pre_bias)
+    for name, k, r in zip(("dx", "dgamma", "dbeta", "dpre_bias"), got, ref):
+        err = (k.float() - r.float()).abs().max().item()
+        assert err <= _grad_tol(r) * r.float().abs().max().item(), (name, err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -212,7 +242,7 @@ def test_training_gradients_reach_every_parameter_through_the_kernels(dev):
     from sgmse_tpu_torch.model import ScoreModel
 
     model = ScoreModel("ncsnpp", "ouve", nf=16, ch_mult=(1, 1, 2), num_res_blocks=1,
-                       attn_resolutions=(16,), image_size=64, init_scale=1.0)
+                       attn_resolutions=(16,), image_size=64, init_scale=1.0, n_fft=126)
     model.init_params(torch.Generator().manual_seed(0))
     model = model.to(dev, memory_format=torch.channels_last).train()
     rng = np.random.default_rng(0)

@@ -74,7 +74,7 @@ def test_group_norm_library_yardstick_matches_plain(silu, bias):
 
 def test_recorder_sees_every_kernel_call_of_a_forward():
     small = dict(nf=16, ch_mult=(1, 1, 2), num_res_blocks=1, attn_resolutions=(16,),
-                 image_size=64, init_scale=1.0)
+                 image_size=64, init_scale=1.0, n_fft=126)
     score_model = ScoreModel("ncsnpp", "ouve", **small)
     score_model.init_params(torch.Generator().manual_seed(0))
     model = score_model.dnn.to(memory_format=torch.channels_last).eval()

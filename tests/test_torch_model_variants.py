@@ -71,7 +71,8 @@ def _rel(got, ref):
 ])
 @pytest.mark.parametrize("network_scaling", [None, "1/sigma"])
 def test_v2_forward_matches_jax(v2_apply, sde, precond, network_scaling):
-    config = dict(NET, attn_resolutions=(16,), network_scaling=network_scaling, **precond)
+    config = dict(NET, **STFT, attn_resolutions=(16,), network_scaling=network_scaling,
+                  **precond)
     port, jmodel, variables = _pair("ncsnpp_v2", sde, config, seed=1)
     jmodel.dnn = types.SimpleNamespace(apply=v2_apply)  # preconditioning as JAX has it
     rng = np.random.default_rng(2)
