@@ -52,7 +52,23 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    seeded dataset of 80 train and 2 valid 2.04-s wavs for 10 steps with
    validation and the evaluation on 2 files, a resume from ``last`` for 2 more
    with the validation loss only, and ``enhance.main --ckpt`` on that
-   checkpoint; (e) 5 steps in bfloat16.
+   checkpoint; (e) 5 steps in bfloat16. Every batch of (d) and (e) must come
+   from the native batch loader (``data/native.py``);
+10. training the Schroedinger bridge at full width with the recipe's flags
+   (``ncsnpp_v2`` + SBVE, data prediction, ``--pesq_weight 5e-4``,
+   ``--batch_size 16``): (a) the PESQ loss on the card (with TF32 allowed for
+   float32 products) against the same function on the CPU at B=16 crops of
+   32,640 samples, its value and its gradient, and its device ms and launches
+   per forward+backward call; (b) every kernel call signature of a B=16 train
+   step, as in 9a; (c) one full-width bridge step (B=8) through the kernels
+   and through the plain versions, the loss and every leaf's gradient, the
+   PESQ term non-zero, then its B=16 step profile with PyTorch's default
+   cuDNN TF32; (d) ``train.main`` with the recipe's flags on phase 9's
+   dataset for 10 steps with validation and the evaluation on 2 files (the
+   bridge's ode sampler, 50 NFE), every batch from the native loader; (e) the
+   run's ``last`` exported to a Lightning ``.ckpt`` and imported back
+   (``convert``): weights bit for bit, the same config, and ``enhance.main
+   --ckpt`` on both directories gives identical wavs.
 
 Each entry-point path is driven with the launch counters set to 0 just before
 it and read just after. The seconds of each phase are printed before the
@@ -103,6 +119,14 @@ TRAIN_LAUNCHES = {"upfirdn2d": 24, "upfirdn2d_adjoint": 18, "group_norm_act": 10
                   "group_norm_act_bwd": 109}
 TRAIN_FILES, VALID_FILES, TRAIN_STEPS, RESUME_STEPS, BF16_STEPS = 80, 2, 10, 2, 5
 EVAL_NFE = 60  # the in-training evaluation: PC, N = sde.N = 30, ald
+# The Schroedinger-bridge recipe (phase 10): its flags, its batch, the kernels-vs-plain
+# step's batch (phase 9b's, to bound the plain route's memory), its evaluation's NFE.
+BRIDGE = dict(backbone="ncsnpp_v2", sde="sbve", loss_type="data_prediction", pesq_weight=5e-4)
+BRIDGE_B, BRIDGE_STEP_B, BRIDGE_EVAL_NFE = 16, 8, 50
+# The PESQ loss on the card against the CPU: the loss relative to max|loss|, the gradient
+# relative to max|g| (cuFFT against pocketfft, float32 sums in another order).
+PESQ_LOSS_TOL, PESQ_GRAD_TOL = 1e-4, 1e-3
+PESQ_REPS, PESQ_TRACED = 20, 5
 # Per network evaluation: launches, group_norm_act with/without SiLU, with the pre-bias,
 # parameters. The 48 kHz net keeps the middle block's attention, whose norm has no SiLU.
 NETS = {
@@ -272,18 +296,20 @@ def network_checks(backbone, dev, report):
     return model, rows
 
 
-def summarize(rows, train_rows, launches_by_path):
+def summarize(rows, train_rows, bridge_rows, launches_by_path):
     """The kernels line: K1 and K2 per network evaluation of the flagship
     (bf16 device times, B=4), the backward kernels per train step (float32,
-    B=8); every kernel's per-train-step sums also under ``per_train_step``."""
+    B=8); every kernel's per-train-step sums also under ``per_train_step``,
+    and those of the bridge's B=16 step under ``per_bridge_train_step``."""
     from sgmse_tpu_torch import kernel_times as kt
 
     sums = {bb: kt.per_nfe([r for r in rows if "ms" in r and r["backbone"] == bb])
             for bb in NETS}
     train_sums = kt.per_nfe([r for r in train_rows if "ms" in r])
+    bridge_sums = kt.per_nfe([r for r in bridge_rows if "ms" in r])
     out = []
     for name in REPLACES:
-        mine = [r for r in rows + train_rows if r["name"] == name]
+        mine = [r for r in rows + train_rows + bridge_rows if r["name"] == name]
         source, replaces = REPLACES[name]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -293,6 +319,10 @@ def summarize(rows, train_rows, launches_by_path):
             max_abs_err_bf16=max(r["max_abs_err"] for r in mine if r["dtype"] == "bfloat16"))
         per_step = {k: v for k, v in train_sums[name].items() if k != "launches_per_nfe"}
         per_step["launches_per_train_step"] = train_sums[name]["launches_per_nfe"]
+        entry["per_bridge_train_step"] = {k: v for k, v in bridge_sums[name].items()
+                                          if k not in ("launches_per_nfe", "library_note")}
+        entry["per_bridge_train_step"]["launches_per_train_step"] = \
+            bridge_sums[name]["launches_per_nfe"]
         if name in sums["ncsnpp"]:  # per network evaluation of the flagship
             entry.update(sums["ncsnpp"][name], per_train_step=per_step,
                          per_nfe_48k={k: v for k, v in sums["ncsnpp_48k"][name].items()
@@ -319,29 +349,30 @@ def check_outputs(what, name, got, ref):
     return max(errs), max(scales)
 
 
-def train_kernel_checks(dev, report):
-    """Phase 9a: every kernel call signature of a full-width train step (B=8),
-    kernel vs plain in float32 and bfloat16, bit-for-bit repeats of K2 and
-    K2b, the library yardsticks, and float32 device times."""
+def train_kernel_checks(dev, report, backbone="ncsnpp", batch=TRAIN_B, tag="train"):
+    """Phases 9a and 10b: every kernel call signature of a full-width train
+    step of ``backbone`` at ``batch``, kernel vs plain in float32 and
+    bfloat16, bit-for-bit repeats of K2 and K2b, the library yardsticks, and
+    float32 device times."""
     import torch
     from sgmse_tpu_torch import kernel_times as kt
 
-    model = kt.full_model(dev)
+    model = kt.full_model(dev, backbone=backbone)
     reset_counters()
-    fwd, bwd = kt.record_train_calls(model, dev, batch=TRAIN_B)  # through the kernels
+    fwd, bwd = kt.record_train_calls(model, dev, batch)  # through the kernels
     torch.cuda.synchronize()
     moved = counters()
     del model
     torch.cuda.empty_cache()
     if moved != TRAIN_LAUNCHES:
-        raise AssertionError(f"train step launches {moved}, expected {TRAIN_LAUNCHES}")
+        raise AssertionError(f"{tag} step launches {moved}, expected {TRAIN_LAUNCHES}")
     counts = kt.per_forward(fwd + bwd)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for (name, sig), per_step in counts.items():
         for dtype in (torch.float32, torch.bfloat16):
             case = kt.make_case(name, sig, dtype, dev, gen)
-            what = f"train {name} {case['sig']} {case['dtype']}"
+            what = f"{tag} {name} {case['sig']} {case['dtype']}"
             got, ref = case["kernel"](), case["plain"]()
             torch.cuda.synchronize()
             err, scale = check_outputs(what, name, got, ref)
@@ -362,9 +393,9 @@ def train_kernel_checks(dev, report):
             del case, got, ref
         torch.cuda.empty_cache()
     sums = kt.per_nfe([r for r in rows if "ms" in r])
-    print(f"train kernel checks: {len(rows)} passed over {len(counts)} call signatures of a "
-          f"B={TRAIN_B} train step (f32, bf16; K2 and K2b repeat bit for bit; yardsticks "
-          f"agree), launches per step {moved}")
+    print(f"{tag} kernel checks: {len(rows)} passed over {len(counts)} call signatures of a "
+          f"B={batch} {backbone} train step (f32, bf16; K2 and K2b repeat bit for bit; "
+          f"yardsticks agree), launches per step {moved}")
     for name, v in sums.items():
         lib = "-" if v["library_ms"] is None else f"{v['library_ms']:.3f}"
         print(f"  {name:18s} x{v['launches_per_nfe']} per step: f32 device {v['ms']:.3f} ms, "
@@ -375,24 +406,22 @@ def train_kernel_checks(dev, report):
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             print(f"    {r['name']:18s} x{r['per_forward']} {r['sig']}: {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f}, library {lib}, bound {r['bound_ms']:.4f}")
-    report["train_kernel_checks"] = rows
+    report[f"{tag}_kernel_checks"] = rows
     return rows
 
 
-def train_step_checks(dev, report):
-    """Phases 9b and 9c: one full-width float32 train step's loss and gradients
-    through the kernels against the plain versions (same t and z), every
-    trainable parameter's gradient finite and non-zero; then the step's
-    steps/s, peak memory and device breakdown."""
+def step_against_plain(model, dev, batch, what):
+    """One full-width float32 train step of ``model`` (seeded t and z) through
+    the kernels against the plain versions: the loss and every leaf's
+    gradient within TRAIN_STEP_TOL, the key biases at rounding level, every
+    trainable leaf finite and non-zero, TRAIN_LAUNCHES launches."""
     import torch
     from sgmse_tpu_torch import kernel_times as kt
-    from sgmse_tpu_torch import nfe_profile
 
-    model = kt.full_model(dev).train()
-    x, y, _ = kt.network_inputs(dev, kt.F_BINS, TRAIN_B)
+    x, y, _ = kt.network_inputs(dev, kt.F_BINS, batch)
     rng = np.random.default_rng(SEED + 1)
-    shape = (TRAIN_B, 1, kt.F_BINS, kt.T_FRAMES)
-    t = torch.from_numpy(rng.uniform(0.03, 1.0, TRAIN_B).astype(np.float32)).to(dev)
+    shape = (batch, 1, kt.F_BINS, kt.T_FRAMES)
+    t = torch.from_numpy(rng.uniform(0.03, 1.0, batch).astype(np.float32)).to(dev)
     z = torch.from_numpy(((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
                           / np.sqrt(2)).astype(np.complex64)).to(dev)
     names, params = zip(*[(n, p) for n, p in model.dnn.named_parameters() if p.requires_grad])
@@ -409,29 +438,38 @@ def train_step_checks(dev, report):
     worst, key_bias = (0.0, None), 0.0
     for name, g, r in zip(names, grads, refs):
         if not torch.isfinite(g).all():
-            raise AssertionError(f"train step: gradient of {name} is not finite")
+            raise AssertionError(f"{what}: gradient of {name} is not finite")
         if name.endswith("NIN_1.b"):  # exactly zero: rounding noise on both routes
             key_bias = max(key_bias, g.abs().max().item() / scale, r.abs().max().item() / scale)
             continue
         if not g.abs().max().item() > 0:
-            raise AssertionError(f"train step: {name} gets no gradient through the kernels")
+            raise AssertionError(f"{what}: {name} gets no gradient through the kernels")
         rel = ((g - r).abs().max() / r.abs().max()).item()
         worst = max(worst, (rel, name))
     n_params = sum(p.numel() for p in params)
-    print(f"train step B={TRAIN_B} f32 ({n_params} trainable params in {len(params)} leaves): "
+    print(f"{what} B={batch} f32 ({n_params} trainable params in {len(params)} leaves): "
           f"loss {loss:.6f}, plain {loss_ref:.6f}; worst leaf gradient rel err {worst[0]:.3e} "
           f"({worst[1]}; bound {TRAIN_STEP_TOL}); key-bias noise {key_bias:.1e} of max|g|; "
           f"every trainable leaf finite and non-zero through the kernels; launches {moved}")
     if (abs(loss - loss_ref) > TRAIN_STEP_TOL * abs(loss_ref) or worst[0] > TRAIN_STEP_TOL
             or key_bias > KEY_BIAS_TOL):
-        raise AssertionError("train step: kernels and plain versions disagree")
+        raise AssertionError(f"{what}: kernels and plain versions disagree")
     if moved != TRAIN_LAUNCHES:
-        raise AssertionError(f"train step launches {moved}, expected {TRAIN_LAUNCHES}")
+        raise AssertionError(f"{what} launches {moved}, expected {TRAIN_LAUNCHES}")
     del grads, refs
     torch.cuda.empty_cache()
+    return dict(loss=loss, loss_plain=loss_ref, worst_leaf=worst, key_bias_noise=key_bias,
+                launches=moved, inputs=(x, y, t, z))
+
+
+def profile_step(model, out_dir, batch, what):
+    """``nfe_profile.train_step_profile`` with PyTorch's default cuDNN TF32, as
+    ``train.main`` runs; K2b must run one kernel per call."""
+    from sgmse_tpu_torch import nfe_profile
+
     with cudnn_tf32():
-        prof = nfe_profile.train_step_profile(model, OUT_DIR)
-    print(f"train step profile, cuDNN TF32 on: {prof['steps_per_s']:.3f} steps/s, "
+        prof = nfe_profile.train_step_profile(model, out_dir, batch)
+    print(f"{what} profile, B={batch}, cuDNN TF32 on: {prof['steps_per_s']:.3f} steps/s, "
           f"{prof['samples_per_s']:.2f} samples/s (wall {prof['wall_ms']:.1f} ms per step), "
           f"device busy {prof['busy_ms']:.1f} ms, idle {prof['idle_share_untraced']:.1%} "
           f"untraced, {prof['launches']:.0f} launches, peak {prof['peak_gib']:.2f} GiB; kinds "
@@ -442,10 +480,138 @@ def train_step_checks(dev, report):
           f"kernels for {TRAIN_LAUNCHES['group_norm_act_bwd']} calls ({per_call:g} per call)")
     if per_call != 1:
         raise AssertionError(f"K2b ran {per_call:g} kernels per call, expected one")
-    report["train_step"] = dict(loss=loss, loss_plain=loss_ref, worst_leaf=worst,
-                                key_bias_noise=key_bias, launches=moved, profile=prof)
+    return prof
+
+
+def train_step_checks(dev, report):
+    """Phases 9b and 9c: one full-width float32 flagship train step's loss and
+    gradients through the kernels against the plain versions; then the step's
+    steps/s, peak memory and device breakdown."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt
+
+    model = kt.full_model(dev).train()
+    step = step_against_plain(model, dev, TRAIN_B, "train step")
+    del step["inputs"]
+    report["train_step"] = dict(step, profile=profile_step(model, OUT_DIR, TRAIN_B,
+                                                           "train step"))
     del model
     torch.cuda.empty_cache()
+
+
+def bridge_model(dev):
+    """The recipe's full-width ScoreModel with seeded weights (init_scale 1, so
+    that every layer contributes), in train mode."""
+    import torch
+    from sgmse_tpu_torch.model import ScoreModel
+
+    model = ScoreModel(**BRIDGE, init_scale=1.0)
+    model.init_params(torch.Generator().manual_seed(SEED))
+    return model.to(dev, memory_format=torch.channels_last).train()
+
+
+def pesq_speech(batch, length):
+    """Seeded (clean, degraded) float32 pairs: harmonic 'speech' under a
+    syllable-rate envelope, and the same at 0-30 dB SNR of white noise."""
+    rng = np.random.default_rng(SEED + 2)
+    n = np.arange(length) / 16000
+    ref = []
+    for _ in range(batch):
+        f0 = rng.uniform(90.0, 250.0)
+        x = sum(np.sin(2 * np.pi * f0 * h * n) / h for h in range(1, 8))
+        x *= 0.5 * (1.0 + np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * n))
+        ref.append(0.3 * x / np.abs(x).max())
+    ref = np.stack(ref)
+    snr = np.linspace(30.0, 0.0, batch)[:, None]
+    sigma = np.sqrt(np.mean(ref ** 2, -1, keepdims=True) / 10 ** (snr / 10))
+    deg = ref + sigma * rng.standard_normal(ref.shape)
+    return ref.astype(np.float32), deg.astype(np.float32)
+
+
+def pesq_checks(dev, report):
+    """Phase 10a: the PESQ loss and its gradient in ``deg`` on the card (TF32
+    allowed for float32 products, which the loss must not take) against the
+    CPU, at B=16 crops of the recipe's 32,640 samples; its device time and
+    launches per forward+backward call."""
+    import torch
+    from sgmse_tpu_torch import nfe_profile
+    from sgmse_tpu_torch.model import ScoreModel
+    from sgmse_tpu_torch.utils.pesq_loss import PesqLoss
+
+    length = ScoreModel(**BRIDGE).spec.target_len
+    ref, deg = pesq_speech(BRIDGE_B, length)
+    loss_fn = PesqLoss(1.0)
+
+    def call(device):
+        r = torch.from_numpy(ref).to(device)
+        d = torch.from_numpy(deg).to(device).requires_grad_()
+        loss = loss_fn(r, d)
+        return loss, torch.autograd.grad(loss.sum(), d)[0]
+
+    loss_cpu, g_cpu = call("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loss, g = (v.cpu() for v in call(dev))
+        for _ in range(3):
+            call(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PESQ_REPS):
+            call(dev)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = start.elapsed_time(end) / PESQ_REPS
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PESQ_TRACED):
+                call(dev)
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    trace = OUT_DIR / "pesq_trace.json"
+    prof.export_chrome_trace(str(trace))
+    traced = nfe_profile.breakdown(json.loads(trace.read_text())["traceEvents"], PESQ_TRACED)
+    loss_err = ((loss - loss_cpu).abs().max() / loss_cpu.abs().max()).item()
+    grad_err = ((g - g_cpu).abs().max() / g_cpu.abs().max()).item()
+    print(f"PESQ loss B={BRIDGE_B} x {length} samples, card (TF32 allowed) vs CPU: loss "
+          f"{[round(v, 5) for v in loss.tolist()]}, rel err {loss_err:.2e} (bound "
+          f"{PESQ_LOSS_TOL}); gradient rel err {grad_err:.2e} of max|g| {g_cpu.abs().max():.3e} "
+          f"(bound {PESQ_GRAD_TOL}); per forward+backward call: device busy "
+          f"{traced['busy_ms']:.3f} ms, {traced['launches']:.0f} launches, wall {wall_ms:.3f} ms")
+    if not (torch.isfinite(g).all() and loss_err <= PESQ_LOSS_TOL and grad_err <= PESQ_GRAD_TOL
+            and g_cpu.abs().max() > 0):
+        raise AssertionError("PESQ loss: card and CPU disagree")
+    report["pesq_loss"] = dict(loss=loss.tolist(), loss_rel_err=loss_err, grad_rel_err=grad_err,
+                               wall_ms=wall_ms, **traced)
+    return report["pesq_loss"]
+
+
+def bridge_step_checks(dev, report):
+    """Phase 10c: one full-width bridge step (B=8) through the kernels against
+    the plain versions, with the PESQ term's value; then the recipe's B=16
+    step profile."""
+    import torch
+
+    model = bridge_model(dev)
+    step = step_against_plain(model, dev, BRIDGE_STEP_B, "bridge step")
+    x, y, t, z = step.pop("inputs")
+    with torch.no_grad():
+        mean, std = model.sde.marginal_prob(x, y, t)
+        x_hat = model(mean + std[:, None, None, None] * z, y, t)
+        n = model.spec.target_len
+        term = model._pesq_loss(model.to_audio(x[:, 0], n), model.to_audio(x_hat[:, 0], n))
+    term = term.mean().item()
+    print(f"  PESQ term of the bridge step: {term:.6f} (x pesq_weight {BRIDGE['pesq_weight']} "
+          f"= {BRIDGE['pesq_weight'] * term:.3e} of the loss {step['loss']:.6f})")
+    if not (np.isfinite(term) and term > 0):
+        raise AssertionError(f"bridge step: PESQ term {term}")
+    del x, y, t, z, x_hat
+    torch.cuda.empty_cache()
+    report["bridge_step"] = dict(step, pesq_term=term, profile=profile_step(
+        model, OUT_DIR / "bridge", BRIDGE_B, "bridge step"))
+    del model
+    torch.cuda.empty_cache()
+    return report["bridge_step"]
 
 
 def write_train_set(root: Path):
@@ -481,38 +647,55 @@ def cudnn_tf32():
         torch.backends.cudnn.allow_tf32 = False
 
 
+def train_run(argv, what, steps, per_validation, validations=1):
+    """``train.main(argv)`` with the counters set to 0 just before and read
+    just after: ``steps`` train steps and ``validations`` validations of
+    ``per_validation`` launches each, every batch (the train steps' and one
+    of the 2 valid files per validation) served by the native loader."""
+    import torch
+    from sgmse_tpu_torch import train
+    from sgmse_tpu_torch.data import native
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    served = dict(native.SERVED)
+    stats = train.main(argv)
+    launches = counters()
+    served = {k: v - served[k] for k, v in native.SERVED.items()}
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    losses = [v for _, v in stats["history"]]
+    print(f"{what}: {stats['step']} steps in {stats['fit_s']:.1f} s with validation, "
+          f"peak {stats['peak_gib']:.2f} GiB, losses {[round(v, 3) for v in losses]}, "
+          f"metrics {stats['metrics']}, launches {launches} (per train step "
+          f"{TRAIN_LAUNCHES} x {steps} + validation {per_validation} x {validations}); "
+          f"batches served {served}")
+    expected = add(expect(TRAIN_LAUNCHES, steps), expect(per_validation, validations))
+    if launches != expected or len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: launches {launches} (expected {expected}), "
+                             f"losses {losses}")
+    if served != {"native": steps + validations, "python": 0}:
+        raise AssertionError(f"{what}: batches served {served}, expected "
+                             f"{steps + validations} from the native loader and none else")
+    return dict(stats, launches=launches, batches_served=served)
+
+
 def train_entry_point(tmp: Path, report, launches_by_path):
     """Phases 9d and 9e: ``train.main`` (``python -m sgmse_tpu_torch.train``) at
     the JAX defaults, its resume and ``enhance.main --ckpt`` on its checkpoint,
     then a short bfloat16 run; each with the counters set to 0 just before.
     They run as a user runs them, with PyTorch's default cuDNN TF32."""
-    import torch
-    from sgmse_tpu_torch import enhance, train
+    from sgmse_tpu_torch import enhance
 
     root = tmp / "train_set"
     write_train_set(root)
     argv = ["--base_dir", str(root), "--log_dir", str(tmp / "train_logs"), "--nolog",
             "--num_workers", "4"]
-    valid_loss = expect(NETS["ncsnpp"]["launches"])  # one batch of the 2 valid files
-    validation = expect(NETS["ncsnpp"]["launches"], 1 + EVAL_NFE)  # valid loss + eval
+    valid_loss = NETS["ncsnpp"]["launches"]  # one batch of the 2 valid files
+    validation = {k: v * (1 + EVAL_NFE) for k, v in valid_loss.items()}  # valid loss + eval
 
     def run(what, extra, steps, valid):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counters()
-        stats = train.main(argv + extra)
-        launches = counters()
-        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        losses = [v for _, v in stats["history"]]
-        print(f"{what}: {stats['step']} steps in {stats['fit_s']:.1f} s with validation, "
-              f"peak {stats['peak_gib']:.2f} GiB, losses {[round(v, 3) for v in losses]}, "
-              f"metrics {stats['metrics']}, launches {launches} "
-              f"(per train step {TRAIN_LAUNCHES} x {steps} + validation {valid})")
-        expected = add(expect(TRAIN_LAUNCHES, steps), valid)
-        if launches != expected or len(losses) != steps or not np.isfinite(losses).all():
-            raise AssertionError(f"{what}: launches {launches} (expected {expected}), "
-                                 f"losses {losses}")
-        return dict(stats, launches=launches)
+        return train_run(argv + extra, what, steps, valid)
 
     main_run = run("train entry point", ["--max_steps", str(TRAIN_STEPS), "--num_eval_files",
                                          str(VALID_FILES)], TRAIN_STEPS, validation)
@@ -552,6 +735,62 @@ def train_entry_point(tmp: Path, report, launches_by_path):
     launches_by_path.update(train=main_run["launches"], train_resume=resumed["launches"],
                             train_enhance=launches, train_bf16=bf16["launches"])
     report["train_entry_point"] = dict(main=main_run, resume=resumed, enhance=es, bf16=bf16)
+
+
+def bridge_entry_point(tmp: Path, report, launches_by_path):
+    """Phases 10d and 10e: ``train.main`` with the bridge recipe's flags on
+    phase 9's dataset, then its ``last`` exported to a Lightning ``.ckpt`` and
+    imported back, and ``enhance.main --ckpt`` on both directories."""
+    import torch
+    from sgmse_tpu_torch import checkpoint, convert, enhance
+
+    argv = ["--base_dir", str(tmp / "train_set"), "--log_dir", str(tmp / "bridge_logs"),
+            "--nolog", "--num_workers", "4", "--backbone", BRIDGE["backbone"], "--sde",
+            BRIDGE["sde"], "--loss_type", BRIDGE["loss_type"], "--pesq_weight",
+            str(BRIDGE["pesq_weight"]), "--batch_size", str(BRIDGE_B), "--max_steps",
+            str(TRAIN_STEPS), "--num_eval_files", str(VALID_FILES)]
+    epochs = -(-TRAIN_STEPS // (TRAIN_FILES // BRIDGE_B))  # one validation per epoch
+    validation = {k: v * (1 + BRIDGE_EVAL_NFE) for k, v in NETS["ncsnpp"]["launches"].items()}
+    run = train_run(argv, "bridge train entry point", TRAIN_STEPS, validation, epochs)
+    launches_by_path["bridge_train"] = run["launches"]
+    last = Path(run["ckpt_dir"]) / "last"
+
+    ckpt = convert.export_lightning_checkpoint(last, tmp / "bridge.ckpt")
+    convert.convert_lightning_checkpoint(tmp / "bridge.ckpt", tmp / "bridge_imported")
+    (s0, c0), (s1, c1) = (checkpoint.load_checkpoint(d) for d in (last, tmp / "bridge_imported"))
+    for key in ("params", "ema_params"):
+        if list(s0[key]) != list(s1[key]) or not all(
+                torch.equal(s0[key][n], s1[key][n]) for n in s0[key]):
+            raise AssertionError(f"bridge checkpoint: {key} changed through the .ckpt")
+    bins = c0["n_fft"] // 2 + 1
+    if c1 != dict(c0, image_size=bins) or (s1["step"], s1["num_updates"]) != (
+            s0["step"], s0["step"]):
+        raise AssertionError(f"bridge checkpoint: config or step changed through the .ckpt: "
+                             f"{c0} -> {c1}, {s0['step']} -> {s1['step']}")
+    outs, enhance_launches = [], []
+    for i, ckpt_dir in enumerate((last, tmp / "bridge_imported")):
+        reset_counters()
+        stats = enhance.main(["--test_dir", str(tmp / "noisy_16000"), "--enhanced_dir",
+                              str(tmp / f"bridge_enhanced_{i}"), "--ckpt", str(ckpt_dir),
+                              "--batch_size", str(B), "--seed", "3"])
+        launches = counters()
+        if stats["nfe"] != BRIDGE_EVAL_NFE or launches != expect(NETS["ncsnpp"]["launches"],
+                                                                 BRIDGE_EVAL_NFE):
+            raise AssertionError(f"bridge enhance --ckpt: NFE {stats['nfe']}, launches "
+                                 f"{launches}")
+        enhance_launches.append(launches)
+        outs.append([p.read_bytes() for p in sorted((tmp / f"bridge_enhanced_{i}").glob("*.wav"))])
+    launches_by_path["bridge_enhance"] = add(*enhance_launches)
+    print(f"bridge checkpoint: {len(ckpt['state_dict'])} tensors and "
+          f"{len(ckpt['ema']['shadow_params'])} EMA shadows exported to a Lightning .ckpt "
+          f"(image_size {ckpt['hyper_parameters']['image_size']}) and imported: weights and EMA "
+          f"bit for bit, config equal; enhance --ckpt on both: {len(outs[0])} wavs, "
+          f"{BRIDGE_EVAL_NFE} NFE each, identical {outs[0] == outs[1]}")
+    if len(outs[0]) != B or outs[0] != outs[1]:
+        raise AssertionError("bridge checkpoint: enhance --ckpt of the exported and re-imported "
+                             "checkpoint differs from the original's")
+    report["bridge_entry_point"] = dict(train=run, ckpt_tensors=len(ckpt["state_dict"]),
+                                        ema_shadows=len(ckpt["ema"]["shadow_params"]))
 
 
 def write_wavs(dirname: Path, sr: int, seconds: float = WAV_SECONDS, n_files: int = B):
@@ -767,7 +1006,23 @@ def main():
             train_entry_point(tmp, report, launches_by_path)
         lap("9d-e train entry point")
 
-    summary = summarize(rows, train_rows, launches_by_path)
+        # --- 10. training the Schroedinger bridge ------------------------------------
+        pesq = pesq_checks(dev, report)
+        lap("10a PESQ loss")
+        bridge_rows = train_kernel_checks(dev, report, "ncsnpp_v2", BRIDGE_B, "bridge")
+        lap("10b bridge kernels")
+        step = bridge_step_checks(dev, report)
+        share = pesq["busy_ms"] / step["profile"]["busy_ms"]
+        print(f"PESQ loss in the B={BRIDGE_B} bridge step: {pesq['busy_ms']:.3f} of "
+              f"{step['profile']['busy_ms']:.1f} ms device busy ({share:.2%}), "
+              f"{pesq['launches']:.0f} of {step['profile']['launches']:.0f} launches")
+        report["pesq_share_of_bridge_step"] = share
+        lap("10c bridge step")
+        with cudnn_tf32():
+            bridge_entry_point(tmp, report, launches_by_path)
+        lap("10d-e bridge entry point")
+
+    summary = summarize(rows, train_rows, bridge_rows, launches_by_path)
     report["kernels"], report["phase_s"] = summary, phases
     print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

@@ -4,9 +4,12 @@ Score-based generative speech enhancement in the complex STFT domain, ported
 slice by slice from the JAX package ``sgmse_tpu``, which stays the reference.
 Ported so far: enhancement (``python -m sgmse_tpu_torch.enhance``) with the
 16 kHz SGMSE+ model, the Schroedinger bridge and the 48 kHz model and every
-sampler, and single-GPU training (``python -m sgmse_tpu_torch.train``); the
-NCSN++ score network runs on hand-written Hopper kernels for upfirdn2d and
-GroupNorm+SiLU, forward and backward.
+sampler, single-GPU training (``python -m sgmse_tpu_torch.train``, the
+Schroedinger-bridge recipe's PESQ loss and the native batch loader included)
+and the reference's Lightning ``.ckpt`` in both directions
+(``python -m sgmse_tpu_torch.convert``); the NCSN++ score network runs on
+hand-written Hopper kernels for upfirdn2d and GroupNorm+SiLU, forward and
+backward.
 
 Imports torch, numpy and scipy only; never jax or sgmse_tpu.
 """

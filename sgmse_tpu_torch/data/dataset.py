@@ -2,18 +2,18 @@
 
 The port's copy of ``sgmse_tpu/data/dataset.py`` (that module cannot be
 imported without JAX, because importing ``sgmse_tpu`` imports it), with its
-numpy seeding unchanged, so that a seed gives the batches of the JAX
-package's Python path (``WavLoader(..., use_native=False)``) bit for bit. They
-are not the batches of the JAX training CLI's default, the native loader
-(``use_native=True``), which draws its crops otherwise and which the port does
-not have yet. The host loads, crops, pads and normalizes waveforms; the STFT
-and the compression transform run batched on the device inside the train step.
+numpy seeding unchanged. ``WavLoader`` loads each batch through the native
+C++ loader by default (``data/native.py``, ``use_native=True``, as in the
+JAX package), so that a seed gives the batches of the JAX training CLI bit
+for bit; where g++ is unavailable it warns and keeps the Python path, whose
+crops differ. ``use_native=False`` takes the Python path, which gives the
+JAX package's ``use_native=False`` batches bit for bit. The host loads,
+crops, pads and normalizes waveforms; the STFT and the compression
+transform run batched on the device inside the train step.
 
 Directory layout as the reference's: ``{base_dir}/{train,valid,test}/
 {clean,noisy}/*.wav`` for format 'default', ``{anechoic,reverb}`` for
-'reverb'; one level of nesting is globbed too. Only the Python reading path is
-ported: the JAX package's native C++ batch loader (``data/native.py``) is
-not, and ``use_native=True`` raises.
+'reverb'; one level of nesting is globbed too.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from . import native
 from .wav import read_wav
 
 
@@ -102,16 +103,15 @@ class WavLoader:
     Drops the last partial batch in shuffled (training) mode and pads the last
     batch by repetition otherwise, as the JAX package does. Epoch e shuffles
     with ``default_rng(seed + e)`` and draws one crop seed per batch from it,
-    in the main thread, so batches do not depend on thread scheduling.
+    in the main thread, so batches do not depend on thread scheduling. Each
+    batch yielded adds one to ``native.SERVED`` under the path that loaded it.
     """
 
     def __init__(self, dataset: Specs, batch_size: int, shuffle: bool,
                  seed: int = 0, num_workers: int = 4, drop_last: Optional[bool] = None,
-                 use_native: bool = False):
-        if use_native:
-            raise NotImplementedError("the native C++ batch loader is not ported yet "
-                                      "(ROADMAP A12)")
+                 use_native: bool = True):
         self.dataset = dataset
+        self.use_native = use_native
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -137,6 +137,20 @@ class WavLoader:
         batch_seeds = [int(s) for s in rng.integers(0, 2**31, size=len(batches))]
 
         def load_batch(idxs, batch_seed):
+            if self.use_native:
+                # One native call decodes, crops and normalizes the whole batch.
+                res = native.load_pair_batch(
+                    [self.dataset.clean_files[int(i)] for i in idxs],
+                    [self.dataset.noisy_files[int(i)] for i in idxs],
+                    self.dataset.target_len, random_crop=self.dataset.shuffle_spec,
+                    seed=batch_seed, normalize=self.dataset.normalize)
+                if res is not None:
+                    x, y = res
+                    if x.shape[0] < self.batch_size:  # pad last partial batch
+                        reps = self.batch_size - x.shape[0]
+                        x = np.concatenate([x, np.repeat(x[-1:], reps, 0)])
+                        y = np.concatenate([y, np.repeat(y[-1:], reps, 0)])
+                    return x, y, "native"
             item_rng = np.random.default_rng(batch_seed)
             xs, ys = [], []
             for i in idxs:
@@ -146,7 +160,7 @@ class WavLoader:
             while len(xs) < self.batch_size:  # pad last partial batch
                 xs.append(xs[-1])
                 ys.append(ys[-1])
-            return np.stack(xs), np.stack(ys)
+            return np.stack(xs), np.stack(ys), "python"
 
         with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
             # Keep a window of in-flight batch futures (prefetch depth = workers).
@@ -163,7 +177,9 @@ class WavLoader:
                     futures.append(ex.submit(load_batch, *next(it)))
                 except StopIteration:
                     pass
-                yield fut.result()
+                x, y, path = fut.result()
+                native.SERVED[path] += 1
+                yield x, y
 
 
 class SpecsDataModule:

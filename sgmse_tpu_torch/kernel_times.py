@@ -1,7 +1,7 @@
 """Device time of the port's kernels at every shape of the full-width main path.
 
     python -m sgmse_tpu_torch.kernel_times [--backbone ncsnpp_48k] [--out FILE]
-    python -m sgmse_tpu_torch.kernel_times --train [--out FILE]
+    python -m sgmse_tpu_torch.kernel_times --train [--batch 8] [--out FILE]
     python sgmse_tpu_torch/kernel_times.py --root DIR [--out FILE]
 
 Records the calls that one evaluation of a full-width NCSN++ (seeded weights,
@@ -24,7 +24,8 @@ times:
 Per network evaluation, each is the sum over signatures of its time times the
 signature's calls per evaluation. With ``--train`` the calls are those of one
 train step of the flagship at the JAX defaults (B=8, F=T=256, float32, remat
-off), forward and backward: K1 and K2 forward, the K1 adjoint
+off; ``--batch`` sets another batch), forward and backward: K1 and K2
+forward, the K1 adjoint
 (``upfirdn2d_adjoint``, yardstick cuDNN's depthwise convolution
 backward-input) and K2b (``group_norm_act_bwd``, yardstick
 ``aten.native_group_norm_backward``: GroupNorm only, on NCHW copies, as
@@ -328,9 +329,10 @@ def record_calls(dev, backbone="ncsnpp"):
     return calls, out, model
 
 
-def record_train_calls(model, dev, f_bins=F_BINS, frames=T_FRAMES, batch=TRAIN_B):
-    """The kernel-dispatcher calls of one train step of ``model`` (its forward
-    in train mode with remat off, then the backward of a loss on its output),
+def record_train_calls(model, dev, batch, f_bins=F_BINS, frames=T_FRAMES):
+    """The kernel-dispatcher calls of one train step of ``model`` at ``batch``
+    (its forward in train mode with remat off, then the backward of a loss on
+    its output),
     on the dispatchers' own route: (forward calls, backward calls), the
     backward's upfirdn2d calls renamed ``upfirdn2d_adjoint``."""
     model.train()
@@ -378,8 +380,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--backbone", choices=sorted(BINS), default="ncsnpp",
                         help="whose full-width call signatures to time")
     parser.add_argument("--train", action="store_true",
-                        help="time the calls of one flagship train step (B=8, float32), "
+                        help="time the calls of one flagship train step (float32), "
                              "forward and backward, per step")
+    parser.add_argument("--batch", type=int, default=TRAIN_B,
+                        help="the train step's batch (with --train)")
     parser.add_argument("--out", type=str, default=None, help="also write the JSON here")
     args = parser.parse_args(argv)
     if args.root:
@@ -389,7 +393,7 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if args.train:
-        fwd, bwd = record_train_calls(full_model(dev), dev)
+        fwd, bwd = record_train_calls(full_model(dev), dev, args.batch)
         counts, dtype = per_forward(fwd + bwd), torch.float32
     else:
         calls, _, model = record_calls(dev, args.backbone)
@@ -402,7 +406,7 @@ def main(argv=None) -> dict:
     result = dict(card=card(), root=args.root or ".", backbone=args.backbone,
                   shapes=rows)
     if args.train:
-        result.update(batch=TRAIN_B, dtype="float32", per_train_step=per_nfe(rows))
+        result.update(batch=args.batch, dtype="float32", per_train_step=per_nfe(rows))
     else:
         result["per_nfe"] = per_nfe(rows)
     line = json.dumps(result)

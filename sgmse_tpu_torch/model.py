@@ -13,8 +13,9 @@ Forward contracts, as in the JAX package:
 Losses, as in the JAX package: ``score_matching`` (sigma^2 weighting),
 ``denoiser`` (weightings 1, sigma^2, edm; the edm weighting as intended, not
 the reference's broadcast bug) and ``data_prediction`` (TF-MSE plus
-``l1_weight`` times the time-domain L1 through the differentiable iSTFT). The
-PESQ loss term (``pesq_weight`` > 0) is not ported yet.
+``l1_weight`` times the time-domain L1 through the differentiable iSTFT, plus
+``pesq_weight`` times the mean differentiable PESQ loss of the estimate
+against the clean waveform, ``utils/pesq_loss.py``, 16 kHz only).
 
 Unlike the JAX package, parameters live in the module (``self.dnn``), as
 PyTorch has it; ``init_params(generator)`` draws them from an explicit
@@ -38,6 +39,7 @@ from . import sampling
 from .dsp import SpecTransform, pad_spec
 from .models import BackboneRegistry
 from .sdes import SDERegistry, crandn
+from .utils.pesq_loss import PesqLoss
 
 _SPEC_KEYS = ("n_fft", "hop_length", "window", "transform_type", "spec_factor",
               "spec_abs_exponent", "num_frames")
@@ -103,8 +105,9 @@ class ScoreModel(nn.Module):
                             help="The balance between the time-frequency and time-domain "
                                  "losses.")
         parser.add_argument("--pesq_weight", type=float, default=0.0,
-                            help="The weight of the PESQ loss term (not ported yet: > 0 "
-                                 "raises in the loss).")
+                            help="The weight of the differentiable PESQ loss term of the "
+                                 "data_prediction loss (16 kHz only; 5e-4 in the "
+                                 "Schroedinger-bridge recipe, 0 turns it off).")
         parser.add_argument("--sr", type=int, default=16000,
                             help="The sample rate of the audio files.")
         return parser
@@ -141,6 +144,9 @@ class ScoreModel(nn.Module):
         self.c_in_type, self.c_out_type, self.c_skip_type = c_in, c_out, c_skip
         self.sigma_data = sigma_data
         self.sr = sr
+        # Built here, as in the JAX package, so that a rate it does not take
+        # raises at construction.
+        self._pesq_loss = PesqLoss(1.0, sample_rate=sr) if pesq_weight > 0.0 else None
 
     @property
     def device(self) -> torch.device:
@@ -237,15 +243,15 @@ class ScoreModel(nn.Module):
                                  f"{self.loss_weighting}")
             return _sum_mean(losses)
         elif self.loss_type == "data_prediction":
-            if self.pesq_weight > 0.0:
-                raise NotImplementedError("the PESQ loss term (pesq_weight > 0) is not ported "
-                                          "yet (ROADMAP A12)")
             f, tt = x.shape[2:]
             loss_tf = _sum_mean((1.0 / (f * tt)) * torch.abs(forward_out - x) ** 2)
             target_len = self.spec.target_len
             x_hat_td = self.to_audio(forward_out[:, 0], target_len)
             x_td = self.to_audio(x[:, 0], target_len)
             loss_l1 = _sum_mean((1.0 / target_len) * torch.abs(x_hat_td - x_td))
+            if self._pesq_loss is not None:  # the clean reference, the estimate degraded
+                loss_pesq = torch.mean(self._pesq_loss(x_td, x_hat_td))
+                return loss_tf + self.l1_weight * loss_l1 + self.pesq_weight * loss_pesq
             return loss_tf + self.l1_weight * loss_l1
         raise ValueError(f"Invalid loss type: {self.loss_type}")
 

@@ -21,10 +21,10 @@ bound; the busy time against the untraced wall time gives the other reading.
 Prints one JSON line; writes the trace to ``DIR/nfe_trace.json``.
 
 With ``--train`` the unit is one train step of the full-width flagship at the
-JAX training defaults (B=8 2.04-s crops, float32, Adam + EMA, seeded
-weights): CUDA events around windows of ``TRAIN_REPS`` steps (steps/s,
-samples/s), the peak device memory, and a trace of ``TRAIN_TRACED`` steps
-(``DIR/train_trace.json``) read the same way.
+JAX training defaults (B=8 2.04-s crops, or ``--batch``; float32, Adam + EMA,
+seeded weights): CUDA events around windows of ``TRAIN_REPS`` steps
+(steps/s, samples/s), the peak device memory, and a trace of
+``TRAIN_TRACED`` steps (``DIR/train_trace.json``) read the same way.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from .kernel_times import BINS
 BATCH, FRAMES = 4, 256  # the main path's batch of 2.04-s utterances
 REPS = 20               # evaluations per timed window
 TRACED = 5              # profiled evaluations
-TRAIN_BATCH = 8         # the JAX training CLI's default batch
+TRAIN_BATCH = 8         # the JAX training CLI's default batch (--batch)
 TRAIN_REPS = 3          # train steps per timed window
 TRAIN_TRACED = 2        # profiled train steps
 
@@ -100,17 +100,17 @@ def _card() -> str:
     return card.splitlines()[0] if card else torch.cuda.get_device_name(0)
 
 
-def train_step_profile(model, out_dir, seed: int = 0) -> dict:
+def train_step_profile(model, out_dir, batch: int, seed: int = 0) -> dict:
     """Steps/s, samples/s, peak memory and the device breakdown of train steps
-    of ``model`` (a ScoreModel on the card) on a seeded batch of
-    ``TRAIN_BATCH`` crops of ``model.spec.target_len`` samples."""
+    of ``model`` (a ScoreModel on the card, with its own loss) on a seeded
+    batch of ``batch`` crops of ``model.spec.target_len`` samples."""
     from . import train
 
     dev = model.device
     state = train.create_train_state(model, torch.Generator().manual_seed(seed))
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
-    shape = (TRAIN_BATCH, model.spec.target_len)
+    shape = (batch, model.spec.target_len)
     x = torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
     y = x + torch.from_numpy((0.1 * rng.standard_normal(shape)).astype(np.float32)).to(dev)
     train.train_step(model, state, x, y, gen)  # warm-up: cuDNN plans, allocator growth
@@ -136,10 +136,10 @@ def train_step_profile(model, out_dir, seed: int = 0) -> dict:
     trace = out / "train_trace.json"
     prof.export_chrome_trace(str(trace))
     wall = statistics.median(times)
-    result = dict(card=_card(), batch=TRAIN_BATCH, samples=shape[1],
+    result = dict(card=_card(), batch=batch, samples=shape[1],
                   params=sum(p.numel() for p in model.parameters()),
                   precision=model.dnn.precision, wall_ms=wall, wall_ms_windows=times,
-                  steps_per_s=1e3 / wall, samples_per_s=TRAIN_BATCH * 1e3 / wall,
+                  steps_per_s=1e3 / wall, samples_per_s=batch * 1e3 / wall,
                   peak_gib=peak, last_loss=float(loss),
                   **breakdown(json.loads(trace.read_text())["traceEvents"], TRAIN_TRACED))
     result["idle_share_untraced"] = 1.0 - result["busy_ms"] / wall
@@ -150,7 +150,9 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--backbone", choices=sorted(BINS), default="ncsnpp")
     parser.add_argument("--train", action="store_true",
-                        help="profile a flagship train step (B=8, float32) instead")
+                        help="profile a flagship train step (float32) instead")
+    parser.add_argument("--batch", type=int, default=TRAIN_BATCH,
+                        help="the train step's batch (with --train)")
     parser.add_argument("--out", type=str, default="chiprun_out")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -161,7 +163,7 @@ def main(argv=None) -> dict:
     if args.train:
         model = ScoreModel("ncsnpp", "ouve", init_scale=1.0).to(
             dev, memory_format=torch.channels_last)
-        result = train_step_profile(model, args.out)
+        result = train_step_profile(model, args.out, args.batch)
         print(json.dumps(result))
         return result
     model = ScoreModel(args.backbone, "ouve", precision="bfloat16", init_scale=1.0)

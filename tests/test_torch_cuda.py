@@ -145,13 +145,16 @@ def _grad_tol(t):
                                              ((2, 384, 32, 32), True, True),
                                              ((2, 512, 64, 64), False, True),
                                              ((3, 256, 33, 17), True, True),
-                                             ((1, 128, 768, 256), True, False)])
+                                             ((1, 128, 768, 256), True, False),
+                                             # the bridge recipe's B=16 train step
+                                             ((16, 256, 128, 128), True, True)])
 def test_group_norm_act_bwd_kernel_matches_plain(dev, dtype, shape, silu, bias):
     """K2b against the plain formula on the same dy, x and forward statistics;
     the statistics K2 writes against the plain forward's; bit-for-bit repeats.
     The shapes span one wave and several (8 x 128 x 128^2), C = 384 and 512,
     odd H x W, and a tile larger than the chip's shared memory (128 x 768 x
-    256, the 48 kHz top level), whose blocks read part of their range twice."""
+    256, the 48 kHz top level), whose blocks read part of their range twice,
+    and a call of the bridge recipe's B=16 train step (16 x 256 x 128^2)."""
     x = _input(shape, dtype, dev) * 2.0 + 0.5
     dy = _input(shape, dtype, dev, seed=3)
     b, c = shape[:2]
@@ -211,7 +214,9 @@ def test_group_norm_act_bwd_kernel_clamp_matches_plain(dev, dtype):
                                            ((2, 4, 64, 64), 1, False),  # pyramid, C = 4
                                            ((2, 4, 8, 8), 2, False),
                                            ((1, 12, 9, 11), 1, True),   # odd sizes
-                                           ((1, 8, 7, 5), 2, False)])
+                                           ((1, 8, 7, 5), 2, False),
+                                           # the bridge recipe's B=16 train step
+                                           ((16, 128, 256, 256), 1, True)])
 def test_upfirdn2d_backward_kernel_matches_plain(dev, dtype, shape, up, pair):
     """The K1 adjoint (one launch, a pair launch for a pair) against autograd
     through the plain version, at the resampling of the score network."""

@@ -117,21 +117,22 @@ def test_adam_and_ema_match_optax(k):
 
 @pytest.mark.parametrize("shuffle", [True, False])
 def test_wav_loader_batches_equal_jax(wav_dataset, shuffle):
+    """Each of the two paths against the JAX package's same path: the Python
+    path (``use_native=False``) and the native loader (the default of both)."""
     subset = "train" if shuffle else "valid"
     kw = dict(dummy=False, shuffle_spec=shuffle, num_frames=64, hop_length=32)
-    ours = WavLoader(Specs(str(wav_dataset), subset, **kw), batch_size=3, shuffle=shuffle,
-                     seed=4, num_workers=2)
-    ref = JaxWavLoader(JaxSpecs(str(wav_dataset), subset, **kw), batch_size=3,
-                       shuffle=shuffle, seed=4, num_workers=2, use_native=False)
-    for _ in range(2):  # two epochs: the seed moves with the epoch
-        got, want = list(ours), list(ref)
-        assert len(got) == len(want) == len(ours) > 0
-        for (gx, gy), (wx, wy) in zip(got, want):
-            assert gx.shape == (3, 63 * 32)
-            np.testing.assert_array_equal(gx, wx)
-            np.testing.assert_array_equal(gy, wy)
-    with pytest.raises(NotImplementedError, match="native"):
-        WavLoader(ours.dataset, 2, shuffle=True, use_native=True)
+    for use_native in (False, True):
+        ours = WavLoader(Specs(str(wav_dataset), subset, **kw), batch_size=3, shuffle=shuffle,
+                         seed=4, num_workers=2, use_native=use_native)
+        ref = JaxWavLoader(JaxSpecs(str(wav_dataset), subset, **kw), batch_size=3,
+                           shuffle=shuffle, seed=4, num_workers=2, use_native=use_native)
+        for _ in range(2):  # two epochs: the seed moves with the epoch
+            got, want = list(ours), list(ref)
+            assert len(got) == len(want) == len(ours) > 0
+            for (gx, gy), (wx, wy) in zip(got, want):
+                assert gx.shape == (3, 63 * 32)
+                np.testing.assert_array_equal(gx, wx)
+                np.testing.assert_array_equal(gy, wy)
 
 
 def test_checkpoint_policies_cross_intervals_with_jumps(tmp_path):
@@ -228,6 +229,26 @@ def test_entry_points_train_then_enhance_from_the_checkpoint(wav_dataset, tmp_pa
     out = enhance.main(["--test_dir", str(wav_dataset / "valid" / "noisy"), "--enhanced_dir",
                         str(tmp_path / "out"), "--ckpt", ckpt, "--N", "2"], device="cpu")
     assert out["files"] == 2 and out["all_finite"] and out["nfe"] == 2 * 4
+
+
+def test_bridge_recipe_trains_through_the_entry_point(wav_dataset, tmp_path):
+    """The Schroedinger-bridge recipe's flags (data prediction with the PESQ
+    term) at the small width: two steps, every batch from the native loader,
+    finite losses, and a checkpoint whose config keeps the PESQ weight."""
+    from sgmse_tpu_torch.data import native
+
+    served = dict(native.SERVED)
+    stats = train.main(["--base_dir", str(wav_dataset), "--log_dir", str(tmp_path / "logs"),
+                        "--backbone", "ncsnpp_v2", "--sde", "sbve", "--loss_type",
+                        "data_prediction", "--pesq_weight", "5e-4", "--max_steps", "2",
+                        "--num_eval_files", "0", *CLI], device="cpu")
+    losses = [v for _, v in stats["history"]]
+    assert stats["step"] == 2 and len(losses) == 2 and np.isfinite(losses).all()
+    assert native.SERVED["native"] - served["native"] == 2 + 1  # two steps, one validation
+    assert native.SERVED["python"] == served["python"]
+    _, config = checkpoint.load_checkpoint(f"{stats['ckpt_dir']}/last")
+    assert (config["backbone"], config["sde"], config["pesq_weight"]) == ("ncsnpp_v2", "sbve",
+                                                                          5e-4)
 
 
 def test_train_entry_point_needs_a_card_and_one_device(wav_dataset, tmp_path, monkeypatch):

@@ -34,6 +34,9 @@ CASES = {
     "denoiser": ("ncsnpp_v2", "ouve", dict(loss_type="denoiser", loss_weighting="edm",
                                            c_in="edm", c_out="edm", c_skip="edm")),
     "data_prediction": ("ncsnpp_v2", "sbve", dict(loss_type="data_prediction")),
+    # the Schroedinger-bridge recipe's loss: the PESQ term on the 2,016-sample crops
+    "data_prediction_pesq": ("ncsnpp_v2", "sbve", dict(loss_type="data_prediction",
+                                                       pesq_weight=5e-4)),
 }
 TOL = 1e-4
 
@@ -101,12 +104,34 @@ def test_step_loss_and_gradients_match_jax(case):
 
 
 def test_pesq_loss_term_is_not_ported_yet():
-    model = ScoreModel("ncsnpp_v2", "sbve", loss_type="data_prediction", pesq_weight=5e-4,
-                       **NET)
-    assert model.config_dict()["pesq_weight"] == 5e-4  # a JAX config still loads
-    x = torch.zeros(1, 1, 64, 64, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="A12"):
-        model.step_loss(x, x)
+    """The PESQ term is ported (the name predates it): with ``pesq_weight`` > 0
+    the data-prediction loss is the loss without it plus ``pesq_weight`` times
+    the mean PESQ loss of the estimate against the clean waveform; the weight
+    stays in the config; a 48 kHz model with the term raises at construction,
+    as in the JAX package."""
+    rng = np.random.default_rng(4)
+    x, y = (torch.from_numpy((0.3 * (rng.standard_normal((2, 1, 64, 64))
+                                     + 1j * rng.standard_normal((2, 1, 64, 64))))
+                             .astype(np.complex64)) for _ in range(2))
+    t, z = torch.tensor([0.2, 0.7]), torch.from_numpy(
+        (rng.standard_normal((2, 1, 64, 64)) + 1j * rng.standard_normal((2, 1, 64, 64)))
+        .astype(np.complex64))
+    losses = []
+    for weight in (0.0, 5e-4):
+        model = ScoreModel("ncsnpp_v2", "sbve", loss_type="data_prediction",
+                           pesq_weight=weight, **NET)
+        model.init_params(torch.Generator().manual_seed(0))
+        losses.append(model.eval().step_loss(x, y, t=t, z=z))
+    assert model.config_dict()["pesq_weight"] == 5e-4
+    with torch.no_grad():
+        mean, std = model.sde.marginal_prob(x, y, t)
+        x_hat = model(mean + std[:, None, None, None] * z, y, t)
+        n = model.spec.target_len
+        term = model._pesq_loss(model.to_audio(x[:, 0], n), model.to_audio(x_hat[:, 0], n))
+    assert term.shape == (2,) and float(term.min()) > 0
+    torch.testing.assert_close(losses[1], losses[0] + 5e-4 * term.mean(), rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="16 kHz"):
+        ScoreModel("ncsnpp_48k", "ouve", sr=48000, pesq_weight=5e-4, **NET)
 
 
 def test_step_loss_draws_from_the_generator():
