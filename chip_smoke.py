@@ -68,18 +68,49 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    bridge's ode sampler, 50 NFE), every batch from the native loader; (e) the
    run's ``last`` exported to a Lightning ``.ckpt`` and imported back
    (``convert``): weights bit for bit, the same config, and ``enhance.main
-   --ckpt`` on both directories gives identical wavs.
+   --ckpt`` on both directories gives identical wavs;
+11. the serving path (``python -m sgmse_tpu_torch.serve``: ``BatchingEnhancer``
+   and its HTTP front end) with the flagship's weights, bf16, PC N=30 + ald
+   (60 NFE a batch), under a watchdog: (a) in a fresh process, 8 threads make
+   its first K1 (pair) and K2 launches at once, each on its own stream, in
+   float32 and bfloat16 (``sgmse_tpu_torch.first_launch``): each within phase
+   3's tolerances, the counters exact; (b) ``build_enhancer`` with
+   ``--batch_size 8 --max_delay_ms 100 --warm_seconds 2.04 4.08``, and
+   ``--max_seconds 5 --chunk_seconds 2.04`` (cut from 30 and 10 to keep the
+   phase short); K1 and K2 against their plain versions as in phase 3
+   (untimed) at every call signature of every (bucket, power-of-two batch)
+   shape the requests below can be served at, buckets 128-512 frames and
+   batches 1-8; warmed up on its executors' streams; eight 2.04-s requests
+   run as one batch, equal within SERVE_TOL to ``model.enhance`` of the same
+   batch with batch 0's generator; (c) HTTP on 127.0.0.1: 1.0, 2.04 and
+   3.5-s requests and a 6-s one on the long path, each answered 200 with a
+   WAV of its length; /healthz, /stats; (d) a closed burst of 32 requests of
+   1.0-4.08 s with 1 executor and with 4, which take turns per network
+   evaluation (audio-s/wall-s, requests/s, batch fill, launch counts exact);
+   with 4 executors and with 1, a 1.0-s request sent just after a 6-s one on
+   the long path: how long each waited for its answer; B=8 forwards from one
+   thread and from two threads on two streams without turns, timed, then
+   traced: how the streams' kernels overlapped, K2's cooperative launches
+   among them (``nfe_profile.stream_overlap``); then
+   ``serve_latency.run_rate`` at 50% and 90% of the 4-executor burst's
+   requests/s for 15 s each (p50/p95/p99 overall and per bucket, 503s; every
+   request must succeed at 50%); the phase's peak memory, no request failed.
 
 Each entry-point path is driven with the launch counters set to 0 just before
 it and read just after. The seconds of each phase are printed before the
 kernels line. Details go to ``chiprun_out/chip_smoke.json``.
 """
 import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 from pathlib import Path
 
@@ -138,6 +169,23 @@ NETS = {
 CONFIG_48K = dict(n_fft=1534, hop_length=384, spec_factor=0.065, spec_abs_exponent=0.667,
                   sigma_min=0.1, sigma_max=1.0, theta=2.0, sr=48000)
 RK45_MAX_STEPS = 4
+# Phase 11, serving: the flags of python -m sgmse_tpu_torch.serve (--max_seconds and
+# --chunk_seconds cut from 30 and 10 s, so that a 6-s request takes the long path in a short
+# phase), the NFE of a batch (PC N=30 + ald), the served batch against model.enhance of the
+# same batch and generator on another stream (the same kernels on the same inputs; relative
+# to max|x|), the requests of the HTTP check, the closed burst and the open-loop rates (as
+# shares of the 4-executor burst's requests/s).
+SERVE_FLAGS = ["--batch_size", "8", "--max_delay_ms", "100", "--warm_seconds", "2.04", "4.08",
+               "--max_seconds", "5", "--chunk_seconds", "2.04", "--precision", "bfloat16"]
+SERVE_NFE = 60
+SERVE_TOL = 1e-5
+HTTP_SECONDS = (1.0, 2.04, 3.5, 6.0)
+BURST_SECONDS, BURST_REQUESTS = (1.0, 2.04, 3.0, 4.08), 32
+OPEN_LOOP_SHARES, OPEN_LOOP_S = (0.5, 0.9), 15.0
+FIRST_LAUNCH_THREADS = 8
+OVERLAP_B, OVERLAP_FORWARDS = 8, 2  # two streams, each this many B=8 forwards, profiled
+HOL_LONG_S, HOL_SHORT_S, HOL_GAP_S = 6.0, 1.0, 0.2  # a short request behind a long-path one
+SERVE_WATCHDOG_S = 900  # phase 11 fails, and the script exits, if it runs longer
 REPLACES = {
     "upfirdn2d": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
     "upfirdn2d_adjoint": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
@@ -208,10 +256,11 @@ def rel_check(what, got, ref, tol_rel):
     return err, scale
 
 
-def check_kernels(counts, dev, backbone):
+def check_kernels(counts, dev, backbone, timed=True):
     """Phase 3: every recorded signature, kernel vs plain in float32 and
     bfloat16, bit-for-bit repeats of group_norm_act, each library yardstick vs
-    the plain version of its function; bf16 device times and bounds."""
+    the plain version of its function; with ``timed``, bf16 device times and
+    bounds."""
     import torch
     from sgmse_tpu_torch import kernel_times as kt
 
@@ -233,9 +282,9 @@ def check_kernels(counts, dev, backbone):
             if "library" in case:
                 row["library_err"], _ = rel_check(f"{name} library {case['sig']} {dt}",
                                                   case["library"](), case["library_ref"](), tol)
-            if dtype == torch.bfloat16:  # the main path's dtype
-                timed = kt.time_case(case)
-                row.update({k: timed[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+            if timed and dtype == torch.bfloat16:  # the main path's dtype
+                times = kt.time_case(case)
+                row.update({k: times[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by", "bytes", "ops")})
             rows.append(row)
             del case, got, ref
@@ -386,8 +435,8 @@ def train_kernel_checks(dev, report, backbone="ncsnpp", batch=TRAIN_B, tag="trai
                 row["library_err"], _ = check_outputs(f"{what} library", name,
                                                       case["library"](), case["library_ref"]())
             if dtype == torch.float32:  # the training dtype of the JAX defaults
-                timed = kt.time_case(case)
-                row.update({k: timed[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                times = kt.time_case(case)
+                row.update({k: times[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by", "bytes", "ops")})
             rows.append(row)
             del case, got, ref
@@ -862,6 +911,339 @@ def against_plain(what, run):
     return dict(rel_err=rel, nfe=nfe, warnings=notes)
 
 
+def speech(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """A seeded noisy harmonic 'speech' waveform under a syllable-rate envelope."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(round(seconds * sr)) / sr
+    x = sum(np.sin(2 * np.pi * rng.uniform(90.0, 250.0) * h * n) / h for h in range(1, 8))
+    x *= 0.5 * (1.0 + np.sin(2 * np.pi * 3.0 * n))
+    return (0.2 * x / np.abs(x).max() + 0.05 * rng.standard_normal(n.size)).astype(np.float32)
+
+
+def wav_bytes(y, sr: int) -> bytes:
+    from sgmse_tpu_torch.data.wav import write_wav
+
+    buf = io.BytesIO()
+    write_wav(buf, y, sr)
+    return buf.getvalue()
+
+
+def http(url: str, body=None, timeout: float = 300.0):
+    """(status, body) of a GET, or of a POST of ``body``."""
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def first_launch_check(report):
+    """Phase 11a: a fresh process whose first K1 and K2 launches come from
+    FIRST_LAUNCH_THREADS threads at once (``sgmse_tpu_torch.first_launch``)."""
+    res = subprocess.run([sys.executable, "-m", "sgmse_tpu_torch.first_launch", "--threads",
+                          str(FIRST_LAUNCH_THREADS)], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    lines = res.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    print(f"serve 11a: first K1 (pair) and K2 launches of a fresh process from "
+          f"{FIRST_LAUNCH_THREADS} threads at once, each on its own stream, f32 and bf16 at "
+          f"{out.get('shape')}: launches {out.get('launches')} (expected "
+          f"{out.get('expected_launches')}), worst rel err {out.get('worst_rel_err')}, "
+          f"errors {out.get('errors')}")
+    if res.returncode != 0 or not out.get("ok"):
+        raise AssertionError(f"first launches from threads: rc {res.returncode}\n"
+                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    report["serve_first_launch"] = out
+
+
+def serve_kernel_checks(model, shapes, dev, report):
+    """Phase 11b: K1 and K2 against their plain versions, as in phase 3 but
+    untimed, at every call signature of the network at each served ``(batch,
+    frames)`` shape, recorded from a forward through the plain versions."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt
+
+    counts = {}
+    for batch, frames in sorted(shapes):
+        inputs = kt.network_inputs(dev, kt.F_BINS, batch, frames)
+        with torch.inference_mode(), kt.routed(calls=[], plain=True) as calls:
+            model.dnn(*inputs)
+        for key, n in kt.per_forward(calls).items():
+            counts.setdefault(key, n)
+        del inputs
+    rows = check_kernels(counts, dev, "ncsnpp", timed=False)
+    worst = {}
+    for r in rows:
+        key = f"{r['name']} {r['dtype']}"
+        worst[key] = max(worst.get(key, 0.0), r["max_abs_err"] / r["max_abs_ref"])
+    print(f"serve 11b kernel checks: {len(rows)} passed over {len(counts)} call signatures of "
+          f"the served shapes {sorted(shapes)} (batch, frames), f32 and bf16 at phase 3's "
+          f"tolerances; worst error relative to max|plain| {worst}")
+    report["serve_kernel_checks"] = dict(shapes=sorted(shapes), signatures=len(counts),
+                                         checks=len(rows), worst_rel=worst)
+    return rows
+
+
+def head_of_line(enhancers, sr):
+    """Phase 11d: a HOL_LONG_S request on the long path, and HOL_GAP_S later a
+    HOL_SHORT_S one, through each enhancer; the seconds from each one's submit
+    to its answer."""
+    long_wav, short_wav = speech(HOL_LONG_S, sr, SEED + 50), speech(HOL_SHORT_S, sr, SEED + 51)
+    out = {}
+    for workers, e in enhancers:
+        t0 = time.perf_counter()
+        f_long = e.submit(long_wav)
+        time.sleep(HOL_GAP_S)
+        t1 = time.perf_counter()
+        f_short = e.submit(short_wav)
+        short = f_short.result(timeout=600)
+        short_s = time.perf_counter() - t1
+        long_out = f_long.result(timeout=600)
+        long_s = time.perf_counter() - t0
+        for got, wav in ((short, short_wav), (long_out, long_wav)):
+            if got.shape != wav.shape or not np.isfinite(got).all():
+                raise AssertionError(f"serve head of line: {got.shape} for {wav.shape}")
+        out[workers] = dict(short_s=short_s, long_s=long_s)
+        print(f"serve 11d head of line with {workers} executor(s): a {HOL_SHORT_S}-s request "
+              f"sent {HOL_GAP_S} s after a {HOL_LONG_S}-s one on the long path answered in "
+              f"{short_s:.3f} s, the long one in {long_s:.3f} s")
+    return out
+
+
+def burst(enh, wavs, sr):
+    """Phase 11d: submit every request at once, wait for all; the counters set
+    to 0 just before and read just after."""
+    import torch
+
+    before = enh.stats()
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    futs = [enh.submit(w) for w in wavs]
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = counters()
+    after = enh.stats()
+    batches = after["batches"] - before["batches"]
+    rows = after["batched_rows"] - before["batched_rows"]
+    if any(o.shape != w.shape or not np.isfinite(o).all() for o, w in zip(outs, wavs)):
+        raise AssertionError("serve burst: an answer has the wrong length or is not finite")
+    expected = expect(NETS["ncsnpp"]["launches"], SERVE_NFE * batches)
+    if (launches != expected or rows != len(wavs) or after["errors"]
+            or after["long_requests"] != before["long_requests"]):
+        raise AssertionError(f"serve burst: launches {launches} (expected {expected} for "
+                             f"{batches} batches), rows {rows}, stats {after}")
+    audio_s = sum(len(w) for w in wavs) / sr
+    return dict(wall_s=wall, audio_s=audio_s, audio_s_per_wall_s=audio_s / wall,
+                requests_per_s=len(wavs) / wall, batches=batches, mean_batch_fill=rows / batches,
+                launches=launches)
+
+
+def forwards_on_streams(model, inputs, threads: int, forwards: int, profile=None) -> float:
+    """``threads`` threads, each on its own stream, warm up once and then run
+    ``forwards`` forwards of ``model`` together; the wall seconds from their
+    start to the last one's end. ``profile`` (a torch.profiler.profile) is
+    entered just before they start and left after the end."""
+    import torch
+
+    ready, go = threading.Barrier(threads + 1), threading.Barrier(threads + 1)
+    errors = []
+
+    def body():
+        try:
+            stream = torch.cuda.Stream(model.device)
+            with torch.cuda.stream(stream), torch.inference_mode():
+                model(*inputs)
+                stream.synchronize()
+                ready.wait()
+                go.wait()
+                for _ in range(forwards):
+                    model(*inputs)
+                stream.synchronize()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            ready.abort()
+            go.abort()
+            errors.append(e)
+
+    pool = [threading.Thread(target=body) for _ in range(threads)]
+    for th in pool:
+        th.start()
+    ready.wait()
+    with profile if profile is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        go.wait()
+        for th in pool:
+            th.join(timeout=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def stream_overlap_check(model, report):
+    """Phase 11d: OVERLAP_FORWARDS x 2 forwards of the served network at
+    B=OVERLAP_B from one thread, and from two threads on two streams at once
+    (untimed by the profiler, then traced): their wall times, the share of
+    device-busy time with both streams' kernels running, and how many of K2's
+    cooperative launches ran beside a kernel of the other stream."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt, nfe_profile
+
+    inputs = kt.network_inputs(model.device, kt.F_BINS, OVERLAP_B)
+    torch.cuda.synchronize()
+    one = forwards_on_streams(model, inputs, 1, 2 * OVERLAP_FORWARDS)
+    two = forwards_on_streams(model, inputs, 2, OVERLAP_FORWARDS)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    forwards_on_streams(model, inputs, 2, OVERLAP_FORWARDS, prof)
+    trace = OUT_DIR / "serve_streams_trace.json"
+    prof.export_chrome_trace(str(trace))
+    got = nfe_profile.stream_overlap(json.loads(trace.read_text())["traceEvents"])
+    got.update(one_thread_s=one, two_threads_s=two)
+    print(f"serve 11d streams: {2 * OVERLAP_FORWARDS} B={OVERLAP_B} bf16 forwards from one thread "
+          f"{one:.3f} s, from two threads on two streams {two:.3f} s; traced: {got['streams']} "
+          f"streams, busy {got['busy_ms']:.3f} ms, both streams at once "
+          f"{got['concurrent_ms']:.3f} ms ({got['concurrent_share']:.1%}); K2 "
+          f"{got['keyed_overlapped']} of {got['keyed']} launches beside the other stream's "
+          f"kernels")
+    report["serve_streams"] = got
+    return got
+
+
+def serve_path(tmp: Path, weights: Path, report, launches_by_path):
+    """Phase 11: the serving path on the card (see the module's docstring)."""
+    import torch
+    from http.server import ThreadingHTTPServer
+    from sgmse_tpu_torch import serve, serve_latency
+    from sgmse_tpu_torch.data.wav import read_wav
+
+    first_launch_check(report)
+    args = serve.build_parser().parse_args(["--weights", str(weights), *SERVE_FLAGS])
+    model, enh, sr = serve.build_enhancer(args)
+    buckets = serve.warm_buckets(enh, args.warm_seconds, sr)
+    # Every shape the dispatcher can launch for the requests below: their
+    # buckets (the long path's chunks included) at every power-of-two batch.
+    frames = set(buckets) | {enh.bucket_for(round(s * sr)) for s in
+                             (*HTTP_SECONDS, *BURST_SECONDS, HOL_SHORT_S, args.chunk_seconds)}
+    rows_per_batch = [1 << i for i in range(serve._next_pow2(enh.max_batch).bit_length())]
+    rows = serve_kernel_checks(model, {(b, f) for f in frames - {None} for b in rows_per_batch},
+                               model.device, report)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    warm_nfe = enh.warmup(buckets)
+    print(f"serve 11b: warm-up of buckets {buckets} x batches 1-8 on {len(enh._workers)} "
+          f"streams, {warm_nfe} NFE each, {time.time() - t0:.1f} s")
+
+    wavs = [speech(WAV_SECONDS, sr, SEED + 20 + i) for i in range(8)]
+    served = np.stack([f.result(timeout=300) for f in [enh.submit(w) for w in wavs]])
+    stats = enh.stats()
+    yb = np.stack(wavs)
+    if (stats["batches"], stats["batched_rows"]) != (1, 8) or yb.shape[1] != \
+            enh.samples_for_bucket(enh.bucket_for(yb.shape[1])):
+        raise AssertionError(f"serve: eight 2.04-s requests did not run as one full batch: "
+                             f"{stats}, {yb.shape}")
+    direct = model.enhance(yb, generator=enh.generator(0), pad_mode=enh.pad_mode,
+                           **enh.sampler_kwargs)
+    rel = float(np.abs(served - direct).max() / np.abs(direct).max())
+    bitwise = bool(np.array_equal(served, direct))
+    print(f"serve 11b: batch 0 (8 x 2.04 s) served on an executor's stream against "
+          f"model.enhance of the same batch and generator on the default stream: rel err "
+          f"{rel:.3e} (bound {SERVE_TOL}), bit for bit {bitwise}")
+    if not (np.isfinite(served).all() and rel <= SERVE_TOL):
+        raise AssertionError(f"serve: the served batch differs from the direct one: {rel}")
+    report["serve_batch"] = dict(rel_err=rel, bitwise=bitwise, warm_nfe=warm_nfe)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(enh, sr))
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    single = None
+    try:
+        answers = {}
+        asks = [threading.Thread(target=lambda s=s, i=i: answers.__setitem__(
+            s, http(url + "/enhance", wav_bytes(speech(s, sr, SEED + 30 + i), sr))))
+            for i, s in enumerate(HTTP_SECONDS)]
+        for th in asks:
+            th.start()
+        for th in asks:
+            th.join(timeout=600)
+        got = {}
+        for s in HTTP_SECONDS:
+            status, body = answers.get(s, (None, b""))
+            out, out_sr = read_wav(io.BytesIO(body)) if status == 200 else (np.zeros((0, 0)), 0)
+            got[s] = (status, out.shape)
+            if status != 200 or out_sr != sr or out.shape != (1, round(s * sr)) or \
+                    not np.isfinite(out).all():
+                raise AssertionError(f"serve HTTP: {s}-s request answered {status}, "
+                                     f"{out.shape} at {out_sr} Hz: {body[:300]!r}")
+        health = json.loads(http(url + "/healthz")[1])
+        stats = json.loads(http(url + "/stats")[1])
+        print(f"serve 11c: HTTP {', '.join(f'{s} s -> {st} {sh}' for s, (st, sh) in got.items())}; "
+              f"/healthz {health}; /stats long_requests {stats['long_requests']}, batches "
+              f"{stats['batches']}, errors {stats['errors']}")
+        if health != {"status": "ok"} or stats["long_requests"] != 1 or stats["errors"]:
+            raise AssertionError(f"serve HTTP: /healthz {health}, /stats {stats}")
+        report["serve_http"] = dict(answers={str(s): v for s, v in got.items()}, stats=stats)
+
+        burst_wavs = [speech(BURST_SECONDS[i % len(BURST_SECONDS)], sr, SEED + 40 + i)
+                      for i in range(BURST_REQUESTS)]
+        burst_buckets = sorted({enh.bucket_for(len(w)) for w in burst_wavs})
+        single = serve.BatchingEnhancer(
+            model, max_batch=enh.max_batch, max_delay_ms=args.max_delay_ms,
+            max_seconds=args.max_seconds, sampler_kwargs=enh.sampler_kwargs,
+            pad_mode=enh.pad_mode, seed=args.seed, chunk_seconds=args.chunk_seconds,
+            max_pending=args.max_pending, execute_workers=1)
+        bursts = {}
+        for workers, e in ((1, single), (4, enh)):
+            e.warmup(burst_buckets, [enh.max_batch])
+            bursts[workers] = b = burst(e, burst_wavs, sr)
+            print(f"serve 11d: closed burst of {BURST_REQUESTS} requests ({BURST_SECONDS} s) with "
+                  f"{workers} executor(s): {b['audio_s_per_wall_s']:.3f} audio-s/wall-s, "
+                  f"{b['requests_per_s']:.3f} requests/s, wall {b['wall_s']:.3f} s, "
+                  f"{b['batches']} batches, mean fill {b['mean_batch_fill']:.2f}, launches "
+                  f"{b['launches']}")
+        launches_by_path["serve"] = add(bursts[1]["launches"], bursts[4]["launches"])
+        report["serve_burst"] = bursts
+        report["serve_head_of_line"] = head_of_line(((4, enh), (1, single)), sr)
+        stream_overlap_check(model, report)
+
+        bodies = [wav_bytes(w, sr) for w in burst_wavs[:len(BURST_SECONDS)]]
+        labels = [f"{s:.2f}s" for s in BURST_SECONDS]
+        report["serve_open_loop"] = {}
+        for share in OPEN_LOOP_SHARES:
+            rate = share * bursts[4]["requests_per_s"]
+            r = serve_latency.run_rate(url, bodies, labels, rate, OPEN_LOOP_S, timeout=120.0)
+            report["serve_open_loop"][str(share)] = r
+            per = "; ".join(f"{k} p50 {v['p50_ms']} p95 {v['p95_ms']} p99 {v['p99_ms']} ok "
+                            f"{v['ok']}/{v['sent']}" for k, v in r["per_bucket"].items())
+            print(f"serve 11d: open loop at {share:.0%} of the burst's requests/s ({rate:.3f}/s, "
+                  f"{OPEN_LOOP_S:.0f} s): ok {r['ok']}/{r['sent']}, 503s {r['rejected']}, failed "
+                  f"{r['failed']}, p50 {r['p50_ms']} ms, p95 {r['p95_ms']}, p99 {r['p99_ms']}, "
+                  f"{r['throughput_rps']:.3f} answers/s; per bucket: {per}")
+        half = report["serve_open_loop"][str(OPEN_LOOP_SHARES[0])]
+        if half["ok"] != half["sent"]:
+            raise AssertionError(f"serve open loop at {OPEN_LOOP_SHARES[0]:.0%}: {half}")
+        stats = enh.stats()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"serve 11: peak device memory {peak:.2f} GiB; stats {stats}")
+        if stats["errors"]:
+            raise AssertionError(f"serve: {stats['errors']} requests failed")
+        report["serve_stats"], report["serve_peak_gib"] = stats, peak
+    finally:
+        server.shutdown()
+        server.server_close()
+        if single is not None:
+            single.close()
+        enh.close()
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     phases, t_phase = {}, time.time()
 
@@ -1021,6 +1403,20 @@ def main():
         with cudnn_tf32():
             bridge_entry_point(tmp, report, launches_by_path)
         lap("10d-e bridge entry point")
+
+        # --- 11. the serving path -------------------------------------------------------
+        def hung():
+            print(f"chip_smoke: phase 11 ran past its watchdog of {SERVE_WATCHDOG_S} s",
+                  file=sys.stderr, flush=True)
+            os._exit(3)
+
+        watchdog = threading.Timer(SERVE_WATCHDOG_S, hung)
+        watchdog.daemon = True
+        watchdog.start()
+        with cudnn_tf32():
+            rows += serve_path(tmp, weights, report, launches_by_path)
+        watchdog.cancel()
+        lap("11 serving")
 
     summary = summarize(rows, train_rows, bridge_rows, launches_by_path)
     report["kernels"], report["phase_s"] = summary, phases

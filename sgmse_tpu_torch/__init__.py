@@ -7,7 +7,8 @@ Ported so far: enhancement (``python -m sgmse_tpu_torch.enhance``) with the
 sampler, single-GPU training (``python -m sgmse_tpu_torch.train``, the
 Schroedinger-bridge recipe's PESQ loss and the native batch loader included)
 and the reference's Lightning ``.ckpt`` in both directions
-(``python -m sgmse_tpu_torch.convert``); the NCSN++ score network runs on
+(``python -m sgmse_tpu_torch.convert``), and dynamic-batching serving on one
+GPU (``python -m sgmse_tpu_torch.serve``); the NCSN++ score network runs on
 hand-written Hopper kernels for upfirdn2d and GroupNorm+SiLU, forward and
 backward.
 

@@ -249,11 +249,9 @@ __global__ void __launch_bounds__(kThreads, 1) gn_act_kernel(const GnArgs a) {
 template <typename T>
 cudaError_t launch(const GnArgs& args, int B, int blocks_cap, void* stream) {
   constexpr int N = Vec16<T>::N;
-  static int smem_limit = 0;
-  if (smem_limit == 0) {
-    const cudaError_t err = allow_dynamic_smem(gn_act_kernel<T>, &smem_limit);
-    if (err != cudaSuccess) return err;
-  }
+  static const SmemOptIn opt_in = opt_in_dynamic_smem(gn_act_kernel<T>);
+  if (opt_in.err != cudaSuccess) return opt_in.err;
+  const int smem_limit = opt_in.limit;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -543,11 +543,9 @@ __global__ void __launch_bounds__(kThreads, 1) gn_bwd_kernel(const BwdArgs a) {
 
 template <typename T>
 cudaError_t launch(const BwdArgs& args, cudaStream_t stream) {
-  static int smem_limit = 0;
-  if (smem_limit == 0) {
-    const cudaError_t err = allow_dynamic_smem(gn_bwd_kernel<T>, &smem_limit);
-    if (err != cudaSuccess) return err;
-  }
+  static const SmemOptIn opt_in = opt_in_dynamic_smem(gn_bwd_kernel<T>);
+  if (opt_in.err != cudaSuccess) return opt_in.err;
+  const int smem_limit = opt_in.limit;
   const size_t smem =
       smem_bytes(args.stage_pix, args.band, args.band / (args.C / args.G), sizeof(T));
   if (smem > static_cast<size_t>(smem_limit)) return cudaErrorInvalidValue;

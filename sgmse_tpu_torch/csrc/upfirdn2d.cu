@@ -167,11 +167,8 @@ __global__ void upfirdn2d_simple_kernel(const __grid_constant__ Pair io,
 template <typename T, int UP, int DOWN>
 cudaError_t launch_tiles(const Pair& io, int n, const Taps& taps, const Shape& s,
                          cudaStream_t stream) {
-  static int smem_limit = 0;
-  if (smem_limit == 0) {
-    const cudaError_t err = allow_dynamic_smem(upfirdn2d_tile_kernel<T, UP, DOWN>, &smem_limit);
-    if (err != cudaSuccess) return err;
-  }
+  static const SmemOptIn opt_in = opt_in_dynamic_smem(upfirdn2d_tile_kernel<T, UP, DOWN>);
+  if (opt_in.err != cudaSuccess) return opt_in.err;
   const int in_rows = ((tile_h<UP>() - 1) * DOWN + s.kh - 1) / UP + 2;
   const int in_cols = ((kTileW - 1) * DOWN + s.kw - 1) / UP + 2;
   const int cv = s.C / Vec16<T>::N;

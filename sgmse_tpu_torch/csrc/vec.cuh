@@ -116,17 +116,28 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-// The largest dynamic shared memory a block of this device may opt into, set
-// once on `kernel` (needed above 48 KB).
+// The largest dynamic shared memory a block of this device may opt into, with
+// the error of opting `kernel` into it (needed above 48 KB). Each launcher
+// keeps it in a function-local static,
+//     static const SmemOptIn smem = opt_in_dynamic_smem(kernel);
+// which C++11 initialises once, under a lock: a thread that reaches the static
+// while another one initialises it waits, so no launch reads the limit before
+// cudaFuncSetAttribute has succeeded or failed. A failure is kept, and every
+// later launch of that kernel returns it.
+struct SmemOptIn {
+  cudaError_t err;
+  int limit;  // 0 unless err is cudaSuccess
+};
+
 template <typename Kernel>
-cudaError_t allow_dynamic_smem(Kernel kernel, int* limit) {
-  int dev = 0;
+SmemOptIn opt_in_dynamic_smem(Kernel kernel) {
+  int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
   }
-  return err;
+  return SmemOptIn{err, err == cudaSuccess ? limit : 0};
 }

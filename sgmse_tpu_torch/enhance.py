@@ -87,11 +87,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _load_items(test_dir: str, target_sr: int):
-    files = sorted(glob(join(test_dir, "*.wav"))) + sorted(glob(join(test_dir, "**", "*.wav")))
+    """(name, mono waveform at target_sr) of every ``.wav`` and ``.flac`` under
+    ``test_dir``. FLAC is read with ``soundfile`` where it imports; without it a
+    ``.flac`` is skipped with a note on stderr, as the JAX CLI does."""
+    files = [f for ext in ("wav", "flac")
+             for f in sorted(glob(join(test_dir, f"*.{ext}")))
+             + sorted(glob(join(test_dir, "**", f"*.{ext}")))]
     items = []
     for path in dict.fromkeys(files):
         name = path[len(test_dir):].lstrip("/")
-        y, sr = read_wav(path)
+        if path.endswith(".flac"):
+            try:
+                import soundfile
+            except ImportError:
+                print(f"skipping {name}: flac requires the soundfile package",
+                      file=sys.stderr)
+                continue
+            y, sr = soundfile.read(path, dtype="float32")
+            y = y.T if y.ndim > 1 else y[None]
+        else:
+            y, sr = read_wav(path)
         y = y[0]
         if sr != target_sr:
             y = resample(y, sr, target_sr)
@@ -133,21 +148,19 @@ def build_model(args) -> ScoreModel:
     return model
 
 
-def _warm_up(model: ScoreModel, shapes, generator, sampler_kwargs) -> int:
+def warm_up(model: ScoreModel, shapes, generator, sampler_kwargs) -> int:
     """Run every input shape once, one step long, so that kernel builds, cuDNN
     set-up and allocator growth happen before the clock starts. The
     Schroedinger-bridge sampler runs ``sde.N`` steps whatever ``N`` says, so
-    the SDE itself is shortened; rk45 stops after one step. Returns the NFE."""
-    sde, nfe = model.sde, 0
-    model.sde = dataclasses.replace(sde, N=1)
-    try:
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", message="ODE sampler hit max_steps")
-            for shape in sorted(shapes):
-                nfe += model.enhance(np.zeros(shape, np.float32), generator=generator,
-                                     timeit=True, **{**sampler_kwargs, "N": 1, "max_steps": 1})[1]
-    finally:
-        model.sde = sde
+    a shortened copy of the SDE is passed down (the model's is left as it is);
+    rk45 stops after one step. Returns the NFE."""
+    nfe, short = 0, dict(sampler_kwargs, N=1, max_steps=1,
+                         sde=dataclasses.replace(model.sde, N=1))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="ODE sampler hit max_steps")
+        for shape in sorted(shapes):
+            nfe += model.enhance(np.zeros(shape, np.float32), generator=generator,
+                                 timeit=True, **short)[1]
     return nfe
 
 
@@ -175,7 +188,7 @@ def main(argv=None, device=None) -> dict:
     else:
         chunks = _chunks(items, args.batch_size, model.spec.hop_length)
         shapes = {(len(c), max(len(y) for _, y in c)) for c in chunks}
-    warm_nfe = _warm_up(model, shapes, generator, sampler_kwargs) if args.timeit else 0
+    warm_nfe = warm_up(model, shapes, generator, sampler_kwargs) if args.timeit else 0
 
     total_audio_s, nfe_total, all_finite = 0.0, 0, True
     if device.type == "cuda":

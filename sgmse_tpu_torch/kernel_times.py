@@ -149,9 +149,9 @@ def full_model(dev, precision="float32", backbone="ncsnpp"):
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 
-def network_inputs(dev, f_bins=F_BINS, batch=B):
+def network_inputs(dev, f_bins=F_BINS, batch=B, frames=T_FRAMES):
     rng = np.random.default_rng(SEED)
-    shape = (batch, 1, f_bins, T_FRAMES)
+    shape = (batch, 1, f_bins, frames)
     cplx = lambda: (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * 0.3
     x, y = cplx().astype(np.complex64), cplx().astype(np.complex64)
     t = rng.uniform(0.03, 1.0, (batch,)).astype(np.float32)

@@ -11,15 +11,21 @@ loaded as it is.
 Every C entry point launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception.
+
+Several host threads may launch kernels at once (the serving path's executor
+threads do, each on its own stream; ``ctypes`` releases the GIL for the call):
+:func:`lib` builds and loads under a lock, so a process builds once, each
+kernel opts into its shared memory once under a C++11 static initialiser, and
+:func:`count_launch` keeps the launch counters exact.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -93,10 +99,12 @@ def build() -> Path:
     return so
 
 
-@functools.lru_cache(maxsize=None)
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on the first call of the process)."""
-    handle = ctypes.CDLL(str(build()))
+_LIB = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     handle.sgmse_upfirdn2d.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, i, i, p]
     handle.sgmse_upfirdn2d.restype = i
@@ -107,6 +115,24 @@ def lib() -> ctypes.CDLL:
     handle.sgmse_error_string.argtypes = [i]
     handle.sgmse_error_string.restype = ctypes.c_char_p
     return handle
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call of the process. The
+    first caller builds and loads it under a lock; threads that call at the
+    same time wait for it and get the same library."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            _LIB = _bind(ctypes.CDLL(str(build())))
+        return _LIB
+
+
+def count_launch(fn, name: str = "launches") -> None:
+    """Add one to the launch counter ``fn.<name>`` under a lock, so that
+    launches from several threads are all counted."""
+    with _COUNT_LOCK:
+        setattr(fn, name, getattr(fn, name) + 1)
 
 
 def check(err: int, what: str) -> None:

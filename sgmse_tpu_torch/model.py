@@ -50,6 +50,14 @@ def _bcast(c):
     return c[:, None, None, None]
 
 
+def _holding(lock, fn):
+    """``fn`` called with ``lock`` held."""
+    def call(*args, **kwargs):
+        with lock:
+            return fn(*args, **kwargs)
+    return call
+
+
 def _accepted(cls) -> set:
     """The keyword arguments ``cls`` declares, its base classes' included."""
     if dataclasses.is_dataclass(cls):
@@ -280,13 +288,18 @@ class ScoreModel(nn.Module):
                 corrector: str = "ald", N: int = 30, corrector_steps: int = 1,
                 snr: float = 0.5, timeit: bool = False, pad_mode: str = "zero_pad",
                 method: str = "rk45", max_steps: int = 1000, prior_noise=None,
-                corrector_noise=None):
+                corrector_noise=None, intermediate: bool = False, sde=None,
+                evaluation_lock=None):
         """Enhance noisy waveform(s) ``(L,)`` or ``(B, L)`` end to end.
 
         Max-abs normalize -> STFT + compression transform -> pad T to a
         multiple of 64 -> sampler -> inverse transform + iSTFT -> un-normalize.
         Returns a numpy waveform of the input's shape, or ``(x_hat, nfe, rtf)``
-        with ``timeit``.
+        with ``timeit``. With ``intermediate`` on the PC path it also returns
+        the trajectory, the complex numpy ``(N, B, 1, F, T)`` state after each
+        predictor step: ``(x_hat, trajectory)``, or ``(x_hat, trajectory, nfe,
+        rtf)`` with ``timeit``; the other samplers ignore the flag, as in the
+        JAX package.
 
         The sampler, as in the JAX package: ``sampler_type`` (default: the
         SDE's) ``pc`` (predictor, corrector, N, snr) or ``ode`` (``method``
@@ -297,11 +310,19 @@ class ScoreModel(nn.Module):
         ``generator`` draws the sampler noise (default: seed 0 on the model's
         device, so repeated calls agree). ``prior_noise`` and
         ``corrector_noise`` inject it instead (see :mod:`.sampling`).
+        ``sde`` samples with another SDE than the model's (a warm-up passes a
+        shortened copy, so that the model is never changed under a caller on
+        another thread). ``evaluation_lock`` (a ``threading.Lock``, or any
+        context manager) is entered for each network evaluation: threads
+        that share the model then take turns at launching whole evaluations,
+        instead of handing the GIL to each other between the ~1,200 launches
+        of one (the serving path's executors do this).
         """
         device = self.device
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        stype = sampler_type if sampler_type is not None else self.sde.sampler_type
+        sde = self.sde if sde is None else sde
+        stype = sampler_type if sampler_type is not None else sde.sampler_type
         start = time.time()
         y = torch.as_tensor(np.asarray(y_wav, dtype=np.float32), device=device)
         squeeze = y.ndim == 1
@@ -317,13 +338,20 @@ class ScoreModel(nn.Module):
 
         noise = as_device(prior_noise)
         score_fn = self.score_fn()
+        if evaluation_lock is not None:
+            score_fn = _holding(evaluation_lock, score_fn)
+        trajectory = None
         if self.sde_name == "ouve":
-            sde = dataclasses.replace(self.sde, N=N)
+            sde = dataclasses.replace(sde, N=N)
             if stype == "pc":
                 sample, nfe = sampling.pc_sampler(
                     predictor, corrector, sde, score_fn, Y, generator=generator,
                     denoise=True, eps=self.t_eps, snr=snr, corrector_steps=corrector_steps,
-                    noise=noise, corrector_noise=as_device(corrector_noise))
+                    noise=noise, corrector_noise=as_device(corrector_noise),
+                    intermediate=intermediate)
+                if intermediate:
+                    sample, trajectory = sample
+                    trajectory = trajectory.cpu().numpy()
             elif stype == "ode":
                 sample, nfe = sampling.ode_sampler(
                     sde, score_fn, Y, generator=generator, eps=self.t_eps, N=N, method=method,
@@ -332,15 +360,16 @@ class ScoreModel(nn.Module):
                 raise ValueError(f"Invalid sampler type for SGMSE sampling: {stype}")
         else:  # sbve: pc maps to ode, and N is not passed (the JAX enhance passes none)
             sample, nfe = sampling.sb_sampler(
-                self.sde, score_fn, Y, generator=generator,
+                sde, score_fn, Y, generator=generator,
                 sampler_type="ode" if stype == "pc" else stype, noise=noise)
         x_hat = (self.to_audio(sample[:, 0], t_orig) * norm).cpu().numpy()  # host fence
         end = time.time()
         if squeeze:
             x_hat = x_hat[0]
+        out = (x_hat,) if trajectory is None else (x_hat, trajectory)
         if timeit:
-            return x_hat, nfe, (end - start) / (x_hat.shape[-1] / self.sr)
-        return x_hat
+            return (*out, nfe, (end - start) / (x_hat.shape[-1] / self.sr))
+        return out if trajectory is not None else x_hat
 
     def enhance_long(self, y_wav, chunk_seconds: float = 20.0, overlap: float = 0.1,
                      generator: Optional[torch.Generator] = None, timeit: bool = False,

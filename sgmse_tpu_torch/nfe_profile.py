@@ -29,6 +29,7 @@ seeded weights): CUDA events around windows of ``TRAIN_REPS`` steps
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import statistics
 import subprocess
@@ -92,6 +93,42 @@ def breakdown(events, evaluations: int) -> dict:
         launches=len(kernels) / evaluations,
         kinds={k: dict(ms=ms / evaluations, launches=n / evaluations)
                for k, (ms, n) in sorted(per_kind.items(), key=lambda kv: -kv[1][0])})
+
+
+def stream_overlap(events, key: str = "gn_act_kernel") -> dict:
+    """How the kernels of different CUDA streams overlapped in a chrome trace:
+    the busy time, the time during which kernels of two or more streams ran
+    at once (and its share of the busy time), and, of the kernels whose name
+    holds ``key`` (K2, a cooperative launch), how many ran while a kernel of
+    another stream was running. Times in ms."""
+    kernels = sorted(((e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream", e.get("tid")),
+                       e["name"]) for e in events if e.get("cat") == "kernel"),
+                     key=lambda k: k[:2])
+    if not kernels:
+        raise ValueError("the trace holds no device kernels")
+    edges = sorted([(s, 1, st) for s, _, st, _ in kernels] + [(e, -1, st) for _, e, st, _ in kernels],
+                   key=lambda x: (x[0], x[1]))
+    active: dict = {}
+    busy = concurrent = 0.0
+    last = edges[0][0]
+    for t, step, stream in edges:
+        running = sum(1 for n in active.values() if n > 0)
+        busy += (t - last) if running >= 1 else 0.0
+        concurrent += (t - last) if running >= 2 else 0.0
+        active[stream] = active.get(stream, 0) + step
+        last = t
+    starts = [k[0] for k in kernels]
+    longest = max(e - s for s, e, _, _ in kernels)
+    keyed = [k for k in kernels if key in k[3]]
+    overlapped = 0
+    for s, e, stream, _ in keyed:
+        lo = bisect.bisect_left(starts, s - longest)
+        hi = bisect.bisect_left(starts, e)
+        overlapped += any(o_st != stream and o_e > s for _, o_e, o_st, _ in kernels[lo:hi])
+    return dict(streams=len({k[2] for k in kernels}), busy_ms=busy / 1000.0,
+                concurrent_ms=concurrent / 1000.0, concurrent_share=concurrent / busy,
+                keyed=len(keyed), keyed_overlapped=overlapped,
+                keyed_overlapped_share=overlapped / len(keyed) if keyed else None)
 
 
 def _card() -> str:

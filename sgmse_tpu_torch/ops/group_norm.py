@@ -180,7 +180,7 @@ def group_norm_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
         b, h * w, c, num_groups, eps, int(silu), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "group_norm_act kernel")
-    group_norm_act_cuda.launches += 1
+    kernels.count_launch(group_norm_act_cuda)
     return (y, stats) if return_stats else y
 
 
@@ -306,7 +306,7 @@ def group_norm_act_bwd_cuda(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tens
         int(silu),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "group_norm_act_bwd kernel")
-    group_norm_act_bwd_cuda.launches += 1
+    kernels.count_launch(group_norm_act_bwd_cuda)
     return dx, dgamma, dbeta, dpre_bias
 
 

@@ -116,10 +116,7 @@ def _launch(xs: Sequence[torch.Tensor], kernel: Kernel, up: int, down: int,
         k.ctypes.data, k.shape[0], k.shape[1], b, h, w, c, oh, ow, up, down, pad0,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "upfirdn2d kernel")
-    if adjoint:
-        upfirdn2d_cuda.adjoint_launches += 1
-    else:
-        upfirdn2d_cuda.launches += 1
+    kernels.count_launch(upfirdn2d_cuda, "adjoint_launches" if adjoint else "launches")
     return ys
 
 

@@ -155,11 +155,15 @@ def pc_sampler(
     probability_flow: bool = False,
     noise: Optional[torch.Tensor] = None,
     corrector_noise: Optional[torch.Tensor] = None,
+    intermediate: bool = False,
 ) -> Tuple[torch.Tensor, int]:
     """Run the N-step PC sampler on conditioning ``y``. Returns ``(sample, nfe)``.
 
     The time grid is ``linspace(T, eps, N)`` with a non-uniform last step from
     eps to 0; with ``denoise`` the final predictor step's mean is returned.
+    With ``intermediate`` the sample is ``(sample, trajectory)``, the
+    trajectory ``(N, *y.shape)`` the state after each predictor step (its last
+    entry the sample before the denoising mean), as in the JAX package.
     """
     predictor = PredictorRegistry.get_by_name(predictor_name)(
         sde, score_fn, probability_flow=probability_flow)
@@ -180,14 +184,18 @@ def pc_sampler(
     else:
         xt = sde.prior_from_noise(noise[0] if inject_steps else noise, y)
     batch = y.shape[0]
-    xt_mean = xt
+    xt_mean, trajectory = xt, []
     for i in range(n):
         vec_t = timesteps[i].expand(batch)
         xt, _ = corrector(xt, y, vec_t, generator,
                           None if corrector_noise is None else corrector_noise[i])
         xt, xt_mean = predictor(xt, y, vec_t, stepsizes[i], generator,
                                 noise[1 + i] if inject_steps else None)
+        if intermediate:
+            trajectory.append(xt)
     result = xt_mean if denoise else xt
+    if intermediate:
+        result = (result, torch.stack(trajectory))
     return result, n * (actual_corrector_steps + 1)
 
 

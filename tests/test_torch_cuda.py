@@ -275,3 +275,21 @@ def test_training_gradients_reach_every_parameter_through_the_kernels(dev):
             continue
         assert g.abs().max() > 0, name
         assert (g - r).abs().max() <= 1e-3 * r.abs().max(), name
+
+
+def test_first_launches_from_many_threads(dev):
+    """A fresh process whose first K1 (pair) and K2 launches come from eight
+    threads at once, each on its own stream, in float32 and bfloat16
+    (``python -m sgmse_tpu_torch.first_launch``): every result within the
+    tolerances of ``chip_smoke.py``'s kernel checks, the counters exact."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    res = subprocess.run([sys.executable, "-m", "sgmse_tpu_torch.first_launch", "--threads", "8"],
+                         cwd=Path(__file__).resolve().parent.parent, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["ok"] and out["launches"] == {"upfirdn2d": 16, "group_norm_act": 16}

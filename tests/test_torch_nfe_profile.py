@@ -31,3 +31,26 @@ def test_breakdown_merges_intervals_and_sorts_kinds():
 def test_breakdown_refuses_a_trace_without_device_work():
     with pytest.raises(ValueError, match="no device kernels"):
         nfe_profile.breakdown([{"cat": "cpu_op", "name": "aten::add", "ts": 0, "dur": 1}], 1)
+
+
+def _on(stream, name, ts, dur):
+    return dict(_kernel(name, ts, dur), args={"stream": stream})
+
+
+def test_stream_overlap_counts_concurrent_streams_and_keyed_kernels():
+    events = [
+        _on(7, "void (anonymous namespace)::gn_act_kernel<__nv_bfloat16>", 0.0, 100.0),
+        _on(9, "sm90_xmma_fprop_implicit_gemm_bf16bf16", 50.0, 100.0),  # overlaps K2
+        _on(7, "elementwise", 200.0, 100.0),
+        _on(9, "void (anonymous namespace)::gn_act_kernel<__nv_bfloat16>", 400.0, 50.0),  # alone
+        _on(9, "elementwise", 450.0, 50.0),
+        {"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 900.0},
+    ]
+    got = nfe_profile.stream_overlap(events)
+    # busy: [0, 150] + [200, 300] + [400, 500] = 350 us; two streams at once on [50, 100]
+    assert got["streams"] == 2
+    assert got["busy_ms"] == pytest.approx(0.35)
+    assert got["concurrent_ms"] == pytest.approx(0.05)
+    assert got["concurrent_share"] == pytest.approx(0.05 / 0.35)
+    assert (got["keyed"], got["keyed_overlapped"]) == (2, 1)
+    assert got["keyed_overlapped_share"] == pytest.approx(0.5)
