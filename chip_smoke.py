@@ -94,7 +94,31 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    among them (``nfe_profile.stream_overlap``); then
    ``serve_latency.run_rate`` at 50% and 90% of the 4-executor burst's
    requests/s for 15 s each (p50/p95/p99 overall and per bucket, 503s; every
-   request must succeed at 50%); the phase's peak memory, no request failed.
+   request must succeed at 50%); the phase's peak memory, no request failed;
+12. the remaining NCSN++ branches and DCUNet: (a) the full-width 48 kHz net
+   with residual pyramids (``ncsnpp_48k --progressive residual
+   --progressive_input residual``, F=768; each pyramid level is K6, cuDNN and
+   one K1 pass at up = down = 1) and the full-width ``ncsnpp`` variant (DDPM
+   blocks, cat combine, no FIR, elu: K2 without SiLU) as phase 3 holds the
+   flagship: every call signature kernel against plain in f32 and bf16, timed
+   in bf16; every call signature of the residual net's B=8 train step (the K1
+   adjoint at up = down = 1, K2b), as phase 9a; (b) the residual net's forward
+   at B=4 and one B=8 f32 train step through the kernels against the plain
+   versions, with the launch counts (24 K1 of which 12 K6 passes, 101 K2 per
+   forward), then the net through ``enhance.main --config`` on four 2.04-s
+   48 kHz wavs (PC N=30 + ald, bf16); (c) the variant's forward, kernels
+   against plain; (d) DCUNet (DilDCUNet-v2, n_fft 512, the JAX CLI's
+   defaults, bN; no hand-written kernel, every count must stay 0):
+   ``enhance.main --config`` on four 2.04-s wavs in bf16 and in f32, bf16
+   against f32 on one evaluation, the CbN variant on a short input and its
+   batch coupling, ``nfe_profile`` of one B=4 bf16 evaluation
+   (``chiprun_out/dcunet_nfe_trace.json``), ``train.main`` at B=8 on phase
+   9's dataset for 10 steps with validation, a train-step profile, a resume
+   from ``last`` whose first step starts from the saved BatchNorm statistics
+   bit for bit, ``enhance.main --ckpt``, and ``last`` through a Lightning
+   ``.ckpt`` and back (weights, EMA and statistics bit for bit, identical
+   wavs). ``python3 chip_smoke.py --only 12`` runs phases 1-2 and 12 alone
+   and prints no contract lines.
 
 Each entry-point path is driven with the launch counters set to 0 just before
 it and read just after. The seconds of each phase are printed before the
@@ -166,8 +190,25 @@ NETS = {
     "ncsnpp_48k": dict(launches={"upfirdn2d": 12, "group_norm_act": 100}, silu_split=[99, 1],
                        pre_bias=49, params=64_739_854),
 }
+# Phase 12: the 48 kHz net with residual pyramids (each pyramid level one K6, i.e. cuDNN
+# and one K1 pass at up = down = 1: 6 down, 6 up) and the full-width ncsnpp variant (DDPM
+# blocks, cat combine, no FIR, elu: K2 without SiLU, no K1); names of kernel_times.VARIANTS.
+NETS["48k_residual"] = dict(launches={"upfirdn2d": 24, "group_norm_act": 101},
+                            silu_split=[100, 1], pre_bias=49, params=70_351_118, k6=12)
+NETS["ncsnpp_variant"] = dict(launches={"upfirdn2d": 0, "group_norm_act": 85},
+                              silu_split=[0, 85], pre_bias=37, params=64_250_918, k6=0)
+# A B=8 train step of the residual net: its K1 adjoints are the 12 res-block pairs', the 6
+# output-pyramid levels' and 5 of the 6 input-pyramid levels' (the first acts on the input).
+RESIDUAL_TRAIN_LAUNCHES = {"upfirdn2d": 24, "upfirdn2d_adjoint": 23, "group_norm_act": 101,
+                           "group_norm_act_bwd": 101}
 CONFIG_48K = dict(n_fft=1534, hop_length=384, spec_factor=0.065, spec_abs_exponent=0.667,
                   sigma_min=0.1, sigma_max=1.0, theta=2.0, sr=48000)
+# DCUNet (phase 12d): DilDCUNet-v2 at n_fft 512 with the JAX CLI's defaults
+# (nfe_profile.DCUNET), 3,531,970 parameters and 3,328 BatchNorm statistics; it runs no
+# hand-written kernel. Its short CbN check, its train-step batch and its bf16/f32 NFE.
+DCUNET_PARAMS, DCUNET_STATS = 3_531_970, 3_328
+DCUNET_TRAIN_B = 8
+DCUNET_BF16_F32_TOL = 0.1  # bf16 against f32 output on one evaluation, relative to max|f32|
 RK45_MAX_STEPS = 4
 # Phase 11, serving: the flags of python -m sgmse_tpu_torch.serve (--max_seconds and
 # --chunk_seconds cut from 30 and 10 s, so that a 6-s request takes the long path in a short
@@ -293,20 +334,26 @@ def check_kernels(counts, dev, backbone, timed=True):
 
 
 def network_checks(backbone, dev, report):
-    """Phases 3 and 4 for one full-width backbone: kernel checks and timings at
-    its call signatures, then its forward through the kernels against the
-    plain versions. Returns (model, kernel rows)."""
+    """Phases 3 and 4 (and 12a-c) for one full-width net of NETS (a backbone, or
+    a kernel_times.VARIANTS name): kernel checks and timings at its call
+    signatures, then its forward through the kernels against the plain
+    versions. Returns (model, kernel rows)."""
     import torch
     from sgmse_tpu_torch import kernel_times as kt
 
     net = NETS[backbone]
-    model = kt.full_model(dev, backbone=backbone)
+    arch, settings = kt.VARIANTS.get(backbone, (backbone, {}))
+    model = kt.full_model(dev, backbone=arch, **settings)
     n_params = sum(p.numel() for p in model.parameters())
-    x, y, t = kt.network_inputs(dev, kt.BINS[backbone])
+    x, y, t = kt.network_inputs(dev, kt.BINS[arch])
     with torch.inference_mode():
         with kt.routed(calls=[], plain=True) as calls:
             out_plain = model.dnn(x, y, t)
     counts = kt.per_forward(calls)
+    k6 = sum(1 for n, sig in calls if n == "upfirdn2d" and sig[1:3] == (1, 1))
+    if k6 != net.get("k6", 0):
+        raise AssertionError(f"{backbone}: {k6} K6 FIR passes per forward, expected "
+                             f"{net.get('k6', 0)}")
     rows = check_kernels(counts, dev, backbone)
     n_sigs = {k: sum(1 for n, _ in counts if n == k) for k in net["launches"]}
     print(f"{backbone} kernel checks: {len(rows)} passed over {n_sigs} call signatures (f32, "
@@ -329,8 +376,9 @@ def network_checks(backbone, dev, report):
     moved = counters()
     rel = ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item()
     print(f"{backbone} full forward: {n_params} params, B={B} F={x.shape[2]} T={x.shape[3]} "
-          f"f32, kernels vs plain rel err {rel:.3e} (bound {FORWARD_TOL}); launches {moved}, "
-          f"group_norm_act with/without SiLU {silu_split}, with the temb pre-bias {with_bias}")
+          f"f32, kernels vs plain rel err {rel:.3e} (bound {FORWARD_TOL}); launches {moved} "
+          f"({k6} of upfirdn2d K6 FIR passes at up = down = 1), group_norm_act with/without "
+          f"SiLU {silu_split}, with the temb pre-bias {with_bias}")
     if n_params != net["params"]:
         raise AssertionError(f"{backbone}: expected {net['params']} params, got {n_params}")
     if not (torch.isfinite(out_kernel).all() and rel <= FORWARD_TOL):
@@ -340,25 +388,29 @@ def network_checks(backbone, dev, report):
         raise AssertionError(f"{backbone}: launches per forward {moved}, SiLU split "
                              f"{silu_split}, pre-bias {with_bias}; expected {expected}")
     report[f"forward_{backbone}"] = dict(params=n_params, rel_err=rel, launches=moved,
-                                         silu_split=silu_split, pre_bias=with_bias)
+                                         silu_split=silu_split, pre_bias=with_bias, k6=k6)
     del out_plain, out_kernel
     return model, rows
 
 
-def summarize(rows, train_rows, bridge_rows, launches_by_path):
+def summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path):
     """The kernels line: K1 and K2 per network evaluation of the flagship
     (bf16 device times, B=4), the backward kernels per train step (float32,
     B=8); every kernel's per-train-step sums also under ``per_train_step``,
-    and those of the bridge's B=16 step under ``per_bridge_train_step``."""
+    those of the bridge's B=16 step under ``per_bridge_train_step``, those of
+    phase 12's nets per evaluation under ``per_nfe_<net>`` and those of the
+    48 kHz residual net's B=8 step under ``per_48k_residual_train_step``."""
     from sgmse_tpu_torch import kernel_times as kt
 
     sums = {bb: kt.per_nfe([r for r in rows if "ms" in r and r["backbone"] == bb])
             for bb in NETS}
     train_sums = kt.per_nfe([r for r in train_rows if "ms" in r])
     bridge_sums = kt.per_nfe([r for r in bridge_rows if "ms" in r])
+    residual_sums = kt.per_nfe([r for r in residual_train_rows if "ms" in r])
     out = []
     for name in REPLACES:
-        mine = [r for r in rows + train_rows + bridge_rows if r["name"] == name]
+        mine = [r for r in rows + train_rows + bridge_rows + residual_train_rows
+                if r["name"] == name]
         source, replaces = REPLACES[name]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -378,6 +430,13 @@ def summarize(rows, train_rows, bridge_rows, launches_by_path):
                                       if k != "library_note"})
         else:  # per train step
             entry.update(per_step)
+        for net in ("48k_residual", "ncsnpp_variant"):
+            if name in sums[net]:
+                entry[f"per_nfe_{net}"] = {k: v for k, v in sums[net][name].items()
+                                           if k != "library_note"}
+        if name in residual_sums:
+            entry["per_48k_residual_train_step"] = {
+                k: v for k, v in residual_sums[name].items() if k != "library_note"}
         out.append(entry)
     return out
 
@@ -398,23 +457,26 @@ def check_outputs(what, name, got, ref):
     return max(errs), max(scales)
 
 
-def train_kernel_checks(dev, report, backbone="ncsnpp", batch=TRAIN_B, tag="train"):
-    """Phases 9a and 10b: every kernel call signature of a full-width train
-    step of ``backbone`` at ``batch``, kernel vs plain in float32 and
-    bfloat16, bit-for-bit repeats of K2 and K2b, the library yardsticks, and
-    float32 device times."""
+def train_kernel_checks(dev, report, backbone="ncsnpp", batch=TRAIN_B, tag="train",
+                        launches=TRAIN_LAUNCHES):
+    """Phases 9a, 10b and 12a: every kernel call signature of a full-width
+    train step of ``backbone`` (or of a kernel_times.VARIANTS name) at
+    ``batch``, kernel vs plain in float32 and bfloat16, bit-for-bit repeats of
+    K2 and K2b, the library yardsticks, and float32 device times."""
     import torch
     from sgmse_tpu_torch import kernel_times as kt
 
-    model = kt.full_model(dev, backbone=backbone)
+    arch, settings = kt.VARIANTS.get(backbone, (backbone, {}))
+    model = kt.full_model(dev, backbone=arch, **settings)
     reset_counters()
-    fwd, bwd = kt.record_train_calls(model, dev, batch)  # through the kernels
+    fwd, bwd = kt.record_train_calls(model, dev, batch,  # through the kernels
+                                     f_bins=kt.BINS.get(arch, kt.F_BINS))
     torch.cuda.synchronize()
     moved = counters()
     del model
     torch.cuda.empty_cache()
-    if moved != TRAIN_LAUNCHES:
-        raise AssertionError(f"{tag} step launches {moved}, expected {TRAIN_LAUNCHES}")
+    if moved != launches:
+        raise AssertionError(f"{tag} step launches {moved}, expected {launches}")
     counts = kt.per_forward(fwd + bwd)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
@@ -459,17 +521,23 @@ def train_kernel_checks(dev, report, backbone="ncsnpp", batch=TRAIN_B, tag="trai
     return rows
 
 
-def step_against_plain(model, dev, batch, what):
-    """One full-width float32 train step of ``model`` (seeded t and z) through
-    the kernels against the plain versions: the loss and every leaf's
-    gradient within TRAIN_STEP_TOL, the key biases at rounding level, every
-    trainable leaf finite and non-zero, TRAIN_LAUNCHES launches."""
+def step_against_plain(model, dev, batch, what, launches=TRAIN_LAUNCHES, f_bins=None,
+                       plain_remat=False):
+    """One full-width float32 train step of ``model`` (seeded t and z, on
+    ``f_bins`` frequency bins, default kernel_times.F_BINS) through the
+    kernels against the plain versions: the loss and every leaf's gradient
+    within TRAIN_STEP_TOL, the key biases at rounding level, every trainable
+    leaf finite and non-zero, ``launches`` launches. With ``plain_remat`` the
+    plain route recomputes each res-block in the backward (the same function
+    and gradients, a fraction of the memory: the plain GroupNorm keeps float32
+    intermediates, and a B=8 48 kHz step does not fit in 80 GB without it)."""
     import torch
     from sgmse_tpu_torch import kernel_times as kt
 
-    x, y, _ = kt.network_inputs(dev, kt.F_BINS, batch)
+    f_bins = f_bins or kt.F_BINS
+    x, y, _ = kt.network_inputs(dev, f_bins, batch)
     rng = np.random.default_rng(SEED + 1)
-    shape = (batch, 1, kt.F_BINS, kt.T_FRAMES)
+    shape = (batch, 1, f_bins, kt.T_FRAMES)
     t = torch.from_numpy(rng.uniform(0.03, 1.0, batch).astype(np.float32)).to(dev)
     z = torch.from_numpy(((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
                           / np.sqrt(2)).astype(np.complex64)).to(dev)
@@ -479,9 +547,14 @@ def step_against_plain(model, dev, batch, what):
     grads = torch.autograd.grad(loss, params)
     torch.cuda.synchronize()
     moved = counters()
-    with kt.routed(plain=True):
-        loss_ref = model.step_loss(x, y, t=t, z=z)
-        refs = torch.autograd.grad(loss_ref, params)
+    remat = model.dnn.remat
+    model.dnn.remat = remat or plain_remat
+    try:
+        with kt.routed(plain=True):
+            loss_ref = model.step_loss(x, y, t=t, z=z)
+            refs = torch.autograd.grad(loss_ref, params)
+    finally:
+        model.dnn.remat = remat
     loss, loss_ref = loss.item(), loss_ref.item()
     scale = max(r.abs().max().item() for r in refs)
     worst, key_bias = (0.0, None), 0.0
@@ -503,8 +576,8 @@ def step_against_plain(model, dev, batch, what):
     if (abs(loss - loss_ref) > TRAIN_STEP_TOL * abs(loss_ref) or worst[0] > TRAIN_STEP_TOL
             or key_bias > KEY_BIAS_TOL):
         raise AssertionError(f"{what}: kernels and plain versions disagree")
-    if moved != TRAIN_LAUNCHES:
-        raise AssertionError(f"{what} launches {moved}, expected {TRAIN_LAUNCHES}")
+    if moved != launches:
+        raise AssertionError(f"{what} launches {moved}, expected {launches}")
     del grads, refs
     torch.cuda.empty_cache()
     return dict(loss=loss, loss_plain=loss_ref, worst_leaf=worst, key_bias_noise=key_bias,
@@ -696,11 +769,12 @@ def cudnn_tf32():
         torch.backends.cudnn.allow_tf32 = False
 
 
-def train_run(argv, what, steps, per_validation, validations=1):
+def train_run(argv, what, steps, per_validation, validations=1, per_step=TRAIN_LAUNCHES):
     """``train.main(argv)`` with the counters set to 0 just before and read
-    just after: ``steps`` train steps and ``validations`` validations of
-    ``per_validation`` launches each, every batch (the train steps' and one
-    of the 2 valid files per validation) served by the native loader."""
+    just after: ``steps`` train steps of ``per_step`` launches and
+    ``validations`` validations of ``per_validation`` launches each, every
+    batch (the train steps' and one of the 2 valid files per validation)
+    served by the native loader."""
     import torch
     from sgmse_tpu_torch import train
     from sgmse_tpu_torch.data import native
@@ -717,9 +791,9 @@ def train_run(argv, what, steps, per_validation, validations=1):
     print(f"{what}: {stats['step']} steps in {stats['fit_s']:.1f} s with validation, "
           f"peak {stats['peak_gib']:.2f} GiB, losses {[round(v, 3) for v in losses]}, "
           f"metrics {stats['metrics']}, launches {launches} (per train step "
-          f"{TRAIN_LAUNCHES} x {steps} + validation {per_validation} x {validations}); "
+          f"{per_step} x {steps} + validation {per_validation} x {validations}); "
           f"batches served {served}")
-    expected = add(expect(TRAIN_LAUNCHES, steps), expect(per_validation, validations))
+    expected = add(expect(per_step, steps), expect(per_validation, validations))
     if launches != expected or len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"{what}: launches {launches} (expected {expected}), "
                              f"losses {losses}")
@@ -1244,7 +1318,243 @@ def serve_path(tmp: Path, weights: Path, report, launches_by_path):
     return rows
 
 
-def main():
+def residual_checks(tmp: Path, report, launches_by_path, dev):
+    """Phases 12a-c: the 48 kHz net with residual pyramids and the ncsnpp
+    variant at full width: their kernel signatures against the plain versions
+    (K1 at up = down = 1, K2 without SiLU) and timed, their forwards through
+    the kernels against the plain versions; every call signature of the
+    residual net's B=8 train step (the K1 adjoint at up = down = 1, K2b) and
+    that step against the plain versions; the residual net through the entry
+    point with ``--config`` (four 2.04-s 48 kHz wavs, PC N=30 + ald, bf16).
+    Returns (kernel rows, train kernel rows)."""
+    import torch
+    from sgmse_tpu_torch import convert, kernel_times as kt
+    from sgmse_tpu_torch.model import ScoreModel
+
+    arch, settings = kt.VARIANTS["48k_residual"]
+    model, rows = network_checks("48k_residual", dev, report)
+    weights = tmp / "weights_48k_residual.npz"
+    convert.save_npz(weights, convert.jax_tree_from_state_dict(model.dnn.state_dict()))
+    del model
+    torch.cuda.empty_cache()
+    model, variant_rows = network_checks("ncsnpp_variant", dev, report)
+    del model
+    torch.cuda.empty_cache()
+    train_rows = train_kernel_checks(dev, report, "48k_residual", TRAIN_B, "48k residual train",
+                                     RESIDUAL_TRAIN_LAUNCHES)
+    model = kt.full_model(dev, backbone=arch, **settings).train()
+    step = step_against_plain(model, dev, TRAIN_B, "48k residual train step",
+                              RESIDUAL_TRAIN_LAUNCHES, kt.BINS[arch], plain_remat=True)
+    del step["inputs"], model
+    torch.cuda.empty_cache()
+    report["residual_train_step"] = step
+
+    config = ScoreModel(arch, "ouve", **CONFIG_48K, **settings).config_dict()
+    (tmp / "k48_residual.json").write_text(json.dumps(config))
+    length = write_wavs(tmp / "noisy_48000", 48000)
+    with cudnn_tf32():
+        report["path_48k_residual"], _ = entry_point(
+            tmp, "48k_residual", ["--weights", str(weights), "--config",
+                                  str(tmp / "k48_residual.json"), "--batch_size", "4", "--N",
+                                  "30", "--corrector", "ald", "--snr", "0.5", "--precision",
+                                  "bfloat16", "--timeit"],
+            48000, length, 60, NETS["48k_residual"]["launches"])
+    launches_by_path["48k_residual"] = report["path_48k_residual"]["launches"]
+    return rows + variant_rows, train_rows
+
+
+def dcunet_model(dev, **overrides):
+    """DilDCUNet-v2 as the JAX training CLI builds it at n_fft 512
+    (``nfe_profile.DCUNET``) with seeded weights; two train-mode forwards on
+    seeded inputs move its BatchNorm statistics off their initial values."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt
+    from sgmse_tpu_torch.model import ScoreModel
+    from sgmse_tpu_torch.nfe_profile import DCUNET, DCUNET_BINS
+
+    model = ScoreModel("dcunet", "ouve", **DCUNET, **overrides)
+    model.init_params(torch.Generator().manual_seed(SEED))
+    model = model.to(dev, memory_format=torch.channels_last).train()
+    x, y, t = kt.network_inputs(dev, DCUNET_BINS)
+    with torch.no_grad():
+        for _ in range(2):
+            model.dnn(x, y, t)
+    return model.eval()
+
+
+def dcunet_checks(tmp: Path, report, launches_by_path, dev):
+    """Phase 12d: DCUNet. The entry point with ``--config`` (four 2.04-s wavs,
+    PC N=30 + ald) in bfloat16 and float32; bf16 against f32 on one
+    evaluation; the CbN variant on a short input (and its batch coupling);
+    ``nfe_profile`` of one B=4 bf16 evaluation; ``train.main`` at B=8 on phase
+    9's dataset for 10 steps with validation, a train-step profile; a resume
+    from ``last`` whose first step starts from the saved statistics bit for
+    bit; ``enhance.main --ckpt``; and ``last`` through a Lightning ``.ckpt``
+    and back: weights, EMA and statistics bit for bit, identical wavs. DCUNet
+    runs no hand-written kernel: every count must stay 0."""
+    import torch
+    from sgmse_tpu_torch import checkpoint, convert, enhance, nfe_profile, train
+    from sgmse_tpu_torch import kernel_times as kt
+    from sgmse_tpu_torch.nfe_profile import DCUNET_BINS
+
+    model = dcunet_model(dev)
+    n_params = sum(p.numel() for p in model.dnn.parameters())
+    n_stats = sum(b.numel() for b in model.dnn.buffers())
+    if (n_params, n_stats) != (DCUNET_PARAMS, DCUNET_STATS):
+        raise AssertionError(f"DCUNet: {n_params} params, {n_stats} statistics")
+    weights, config = tmp / "dcunet.npz", tmp / "dcunet.json"
+    convert.save_npz(weights, convert.jax_variables_from_state_dict(model.dnn.state_dict()))
+    config.write_text(json.dumps(model.config_dict()))
+    length = write_wavs(tmp / "noisy_16000", 16000)
+    none = {k: 0 for k in NETS["ncsnpp"]["launches"]}
+    with cudnn_tf32():
+        for precision in ("bfloat16", "float32"):
+            report[f"dcunet_{precision}"], _ = entry_point(
+                tmp, f"dcunet_{precision}",
+                ["--weights", str(weights), "--config", str(config), "--batch_size", "4", "--N",
+                 "30", "--corrector", "ald", "--snr", "0.5", "--precision", precision,
+                 "--timeit"], 16000, length, 60, none)
+            launches_by_path[f"dcunet_{precision}"] = report[f"dcunet_{precision}"]["launches"]
+
+    x, y, t = kt.network_inputs(dev, DCUNET_BINS)
+    bf16 = dcunet_model(dev, precision="bfloat16")
+    with torch.inference_mode():
+        out32, out16 = model(x, y, t), bf16(x, y, t)
+    rel = ((out16 - out32).abs().max() / out32.abs().max()).item()
+    print(f"DCUNet B={B} F={DCUNET_BINS} T={kt.T_FRAMES}: {n_params} params, {n_stats} BatchNorm "
+          f"statistics; bf16 vs f32 output rel err {rel:.3e} (bound {DCUNET_BF16_F32_TOL})")
+    if not (torch.isfinite(torch.view_as_real(out16)).all() and rel <= DCUNET_BF16_F32_TOL):
+        raise AssertionError(f"DCUNet bf16 vs f32: {rel}")
+    prof = nfe_profile.evaluation_profile(bf16, x, y, t, OUT_DIR, "dcunet_nfe_trace.json")
+    prof["epilogue_bound"] = nfe_profile.dcunet_epilogue_bound(bf16, x, y, t)
+    print(f"DCUNet evaluation profile, B={B} bf16: wall {prof['wall_ms']:.2f} ms per NFE, device "
+          f"busy {prof['busy_ms']:.2f} ms (idle {prof['idle_share_untraced']:.1%} untraced), "
+          f"{prof['launches']:.0f} launches; kinds "
+          + ", ".join(f"{k} {v['ms']:.2f} ms/{v['launches']:.0f}" for k, v in prof["kinds"].items())
+          + f"; the {prof['epilogue_bound']['blocks']} block epilogues' byte bound (K7) "
+          f"{prof['epilogue_bound']['bound_ms']:.3f} ms")
+    report["dcunet_nfe_profile"] = prof
+    report["dcunet_bf16_vs_f32"] = rel
+    del bf16, out32, out16
+
+    cbn = dcunet_model(dev, dcunet_norm_type="CbN")
+    short = speech(1.0, 16000, SEED + 5)
+    with cudnn_tf32():
+        got, nfe, _ = cbn.enhance(short, generator=torch.Generator(device=dev).manual_seed(1),
+                                  N=5, timeit=True)
+        with torch.inference_mode():
+            pair = cbn(x[:2], y[:2], t[:2])[:1]
+            alone = cbn(x[:1], y[:1], t[:1])
+    coupling = ((pair - alone).abs().max() / alone.abs().max()).item()
+    print(f"DCUNet CbN: short enhance {got.shape[0]} samples, NFE {nfe}, finite "
+          f"{bool(np.isfinite(got).all())}; row 0 alone vs beside row 1 differs by {coupling:.3e} "
+          f"of max|out| (batch statistics in eval mode, as in the JAX package)")
+    if not (np.isfinite(got).all() and got.shape == short.shape and coupling > 0):
+        raise AssertionError("DCUNet CbN: short enhance not finite, or no batch coupling")
+    report["dcunet_cbn"] = dict(nfe=nfe, batch_coupling=coupling)
+    del cbn, model
+    torch.cuda.empty_cache()
+
+    root = tmp / "train_set"
+    if not root.exists():
+        write_train_set(root)
+    argv = ["--base_dir", str(root), "--log_dir", str(tmp / "dcunet_logs"), "--nolog",
+            "--num_workers", "4", "--backbone", "dcunet", "--n_fft", "512", "--hop_length",
+            "128", "--batch_size", str(DCUNET_TRAIN_B)]
+    with cudnn_tf32():
+        run = train_run(argv + ["--max_steps", str(TRAIN_STEPS), "--num_eval_files",
+                                str(VALID_FILES)], "DCUNet train entry point", TRAIN_STEPS,
+                        none, per_step=none)
+        last = Path(run["ckpt_dir"]) / "last"
+        saved, saved_config = checkpoint.load_checkpoint(last)
+        if len(saved.get("model_state", {})) != 4 * 11:
+            raise AssertionError(f"DCUNet last: model_state {list(saved.get('model_state', {}))}")
+        seen, step = [], train.train_step
+
+        def first_step(model, state, *args, **kwargs):
+            if not seen:
+                seen.append({n: b.detach().cpu().clone() for n, b in model.dnn.named_buffers()})
+            return step(model, state, *args, **kwargs)
+
+        train.train_step = first_step
+        try:
+            resumed = train_run(argv + ["--max_steps", str(TRAIN_STEPS + RESUME_STEPS),
+                                        "--num_eval_files", "0", "--ckpt", str(last)],
+                                "DCUNet train resume", RESUME_STEPS, none, per_step=none)
+        finally:
+            train.train_step = step
+        restored = seen and all(torch.equal(seen[0][n], v)
+                                for n, v in saved["model_state"].items())
+        print(f"DCUNet resume: the first step after the resume starts from the saved statistics "
+              f"bit for bit: {bool(restored)}")
+        if not restored or resumed["step"] != TRAIN_STEPS + RESUME_STEPS:
+            raise AssertionError("DCUNet resume: statistics not restored")
+        profile = nfe_profile.train_step_profile(dcunet_model(dev).train(), OUT_DIR,
+                                                 DCUNET_TRAIN_B,
+                                                 trace_name="dcunet_train_trace.json")
+        print(f"DCUNet train step profile, B={DCUNET_TRAIN_B} f32, cuDNN TF32 on: "
+              f"{profile['steps_per_s']:.2f} steps/s, device busy {profile['busy_ms']:.1f} ms "
+              f"(idle {profile['idle_share_untraced']:.1%} untraced), {profile['launches']:.0f} "
+              f"launches, peak {profile['peak_gib']:.2f} GiB; kinds "
+              + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in profile["kinds"].items()))
+
+        last = Path(resumed["ckpt_dir"]) / "last"
+        ckpt = convert.export_lightning_checkpoint(last, tmp / "dcunet.ckpt")
+        convert.convert_lightning_checkpoint(tmp / "dcunet.ckpt", tmp / "dcunet_imported")
+        (s0, c0), (s1, c1) = (checkpoint.load_checkpoint(d) for d in (last, tmp / "dcunet_imported"))
+        for key in ("params", "ema_params", "model_state"):
+            if list(s0[key]) != list(s1[key]) or not all(
+                    torch.equal(s0[key][n], s1[key][n]) for n in s0[key]):
+                raise AssertionError(f"DCUNet checkpoint: {key} changed through the .ckpt")
+        if c1 != c0:
+            raise AssertionError(f"DCUNet checkpoint: config changed: {c0} -> {c1}")
+        outs, enhance_launches = [], {}
+        for i, ckpt_dir in enumerate((last, tmp / "dcunet_imported")):
+            reset_counters()
+            stats = enhance.main(["--test_dir", str(root / "valid" / "noisy"), "--enhanced_dir",
+                                  str(tmp / f"dcunet_enhanced_{i}"), "--ckpt", str(ckpt_dir),
+                                  "--batch_size", "2", "--N", "30", "--seed", "3"])
+            enhance_launches[f"dcunet_enhance_ckpt_{i}"] = counters()
+            if stats["nfe"] != EVAL_NFE or not stats["all_finite"]:
+                raise AssertionError(f"DCUNet enhance --ckpt: {stats}")
+            outs.append([p.read_bytes() for p in sorted((tmp / f"dcunet_enhanced_{i}").glob("*.wav"))])
+    n_stats = sum(k.endswith(("running_mean", "running_var")) for k in ckpt["state_dict"])
+    print(f"DCUNet checkpoint: {len(ckpt['state_dict'])} tensors ({n_stats} running-statistics "
+          f"tensors) and {len(ckpt['ema']['shadow_params'])} EMA shadows to a Lightning .ckpt "
+          f"and back: weights, EMA and statistics bit for bit, config equal; enhance --ckpt on "
+          f"both: {len(outs[0])} wavs, {EVAL_NFE} NFE each, identical {outs[0] == outs[1]}")
+    if len(outs[0]) != VALID_FILES or outs[0] != outs[1]:
+        raise AssertionError("DCUNet checkpoint: enhance --ckpt differs after the round trip")
+    launches_by_path.update(dcunet_train=run["launches"], dcunet_resume=resumed["launches"],
+                            **enhance_launches)
+    for name in ("dcunet_bfloat16", "dcunet_float32", "dcunet_train", "dcunet_resume",
+                 *enhance_launches):
+        if any(launches_by_path[name].values()):
+            raise AssertionError(f"{name}: DCUNet launched a hand-written kernel: "
+                                 f"{launches_by_path[name]}")
+    report["dcunet_train"] = dict(train=run, resume=resumed, profile=profile,
+                                  ckpt_tensors=len(ckpt["state_dict"]))
+
+
+def phase_12(tmp: Path, report, launches_by_path, dev, lap):
+    """Phase 12: 12a-c (``residual_checks``), then 12d (``dcunet_checks``).
+    Returns the kernel rows and the residual net's train kernel rows."""
+    rows, train_rows = residual_checks(tmp, report, launches_by_path, dev)
+    report["kernel_checks_12"] = rows
+    lap("12a-c 48 kHz residual, ncsnpp variant")
+    dcunet_checks(tmp, report, launches_by_path, dev)
+    lap("12d DCUNet")
+    return rows, train_rows
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
+    parser.add_argument("--only", choices=("12",), default=None,
+                        help="run phases 1-2 and this phase only, and print no contract lines "
+                             "(a quicker check of one phase)")
+    only = parser.parse_args(argv).only
     phases, t_phase = {}, time.time()
 
     def lap(name):
@@ -1281,6 +1591,11 @@ def main():
     launches_by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        if only == "12":
+            phase_12(tmp, report, launches_by_path, dev, lap)
+            print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
+            (OUT_DIR / "chip_smoke_12.json").write_text(json.dumps(report, indent=1, default=str))
+            return
         model, rows = network_checks("ncsnpp", dev, report)
         model_48k, rows_48k = network_checks("ncsnpp_48k", dev, report)
         rows += rows_48k
@@ -1418,7 +1733,11 @@ def main():
         watchdog.cancel()
         lap("11 serving")
 
-    summary = summarize(rows, train_rows, bridge_rows, launches_by_path)
+        # --- 12. the remaining NCSN++ branches and DCUNet ------------------------------
+        residual_rows, residual_train_rows = phase_12(tmp, report, launches_by_path, dev, lap)
+        rows += residual_rows
+
+    summary = summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path)
     report["kernels"], report["phase_s"] = summary, phases
     print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
@@ -1430,4 +1749,4 @@ def main():
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    main()
+    main(sys.argv[1:])

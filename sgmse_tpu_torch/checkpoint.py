@@ -3,7 +3,9 @@ policies. Counterpart of ``sgmse_tpu/checkpoint.py``.
 
 A checkpoint is a directory holding ``state.pt`` (``torch.save`` of the
 state tree: ``step``, ``params`` and ``ema_params`` as ``{name: tensor}`` in
-the port's ``state_dict`` names, and ``num_updates``) and ``config.json``,
+the port's ``state_dict`` names, ``num_updates``, and, for a model with
+buffers (DCUNet's BatchNorm running statistics), ``model_state``) and
+``config.json``,
 the model's ``config_dict()``, which is what a JAX checkpoint embeds. As in
 the JAX package, the optimizer's moments are not saved: a resumed run starts
 Adam afresh. The EMA weights export to the JAX tree with
@@ -64,13 +66,13 @@ def load_checkpoint(path: os.PathLike) -> Tuple[Dict[str, Any], Dict[str, Any]]:
 def load_score_model(path: os.PathLike, **overrides):
     """A ScoreModel rebuilt from a checkpoint's embedded config (updated with
     ``overrides``, e.g. ``precision``), holding its EMA weights (the weights
-    the reference evaluates and enhances with). On the CPU; move it where it
-    should run."""
+    the reference evaluates and enhances with) and its model state. On the
+    CPU; move it where it should run."""
     from .model import ScoreModel  # local import to avoid a cycle
 
     state, config = load_checkpoint(path)
     model = ScoreModel.from_config(dict(config, **overrides))
-    model.dnn.load_state_dict(state["ema_params"])
+    model.dnn.load_state_dict({**state["ema_params"], **state.get("model_state", {})})
     return model
 
 

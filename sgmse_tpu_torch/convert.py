@@ -5,13 +5,21 @@ The JAX ``variables["params"]`` tree, as nested dicts of numpy arrays, maps
 onto the port's ``state_dict`` by a mechanical walk, because the port names its
 submodules after the Flax tree (``down_0_block0.GroupNorm_0``, ...):
 
-- conv ``kernel`` (HWIO) -> ``weight`` (OIHW);
+- conv ``kernel`` (HWIO) -> ``weight`` (OIHW), and so the FIR conv's
+  ``weight`` (``Conv2d_0``, HWIO in JAX);
+- a transposed conv's ``re_kernel``/``im_kernel`` (HWIO) -> ``re_weight``/
+  ``im_weight`` (C_in, C_out, kh, kw), as ``F.conv_transpose2d`` takes it;
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
-- GroupNorm ``scale`` -> ``weight``;
-- ``bias``, NIN ``W``/``b`` and the Fourier ``W`` carry over as they are.
+- GroupNorm and BatchNorm ``scale`` -> ``weight``;
+- ``bias``, NIN ``W``/``b``, the Fourier ``W`` and the CbN affine carry over;
+- the ``batch_stats`` collection (DCUNet's BatchNorm ``mean``/``var``) ->
+  buffers of the same names.
 
 On disk a tree is an ``.npz`` of its leaves under ``/``-joined paths
-(``down_0_block0/Conv_0/Conv_0/kernel``), which numpy alone reads and writes.
+(``down_0_block0/Conv_0/Conv_0/kernel``), which numpy alone reads and writes;
+a model with batch statistics is saved as its JAX ``variables`` dict
+(:func:`jax_variables_from_state_dict`), which
+:func:`state_dict_from_variables` reads back.
 
 The reference's NCSN++ backbones (``ncsnpp``, ``ncsnpp_v2``, ``ncsnpp_48k``)
 hold their modules in one position-indexed list (``all_modules.{i}``, in
@@ -28,7 +36,10 @@ that the reference loads (``ScoreModel.load_from_checkpoint``):
     python -m sgmse_tpu_torch.convert model.ckpt out_dir    # import
     python -m sgmse_tpu_torch.convert ckpt_dir model.ckpt   # export
 
-The DCUNet half is not ported (ROADMAP A11).
+The DCUNet half (:func:`convert_dcunet_state_dict`,
+:func:`export_dcunet_state_dict`) maps the reference's named modules, its
+BatchNorm running statistics and its transposed-conv layouts the same way;
+the statistics travel in a port checkpoint's ``model_state``.
 """
 from __future__ import annotations
 
@@ -78,52 +89,102 @@ def load_npz(path) -> Dict:
         return unflatten_tree({k: z[k] for k in z.files})
 
 
-def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Map a JAX parameter tree to the port's state_dict names and layouts."""
+# Leaves that keep their name and layout: NIN's W and b, the Fourier W, the
+# complex BatchNorm's (CbN) affine. BatchNorm running statistics (``mean``,
+# ``var``) are buffers of the port, the ``batch_stats`` collection in JAX.
+_AS_IS = ("bias", "W", "b", "Wrr", "Wri", "Wii", "Br", "Bi")
+_STATS = ("mean", "var")
+
+
+def _leaf_to_port(path: str, name: str, leaf: np.ndarray):
+    """(port name, port layout) of one leaf of the JAX parameter tree."""
+    if name == "kernel":
+        if leaf.ndim == 4:  # HWIO -> OIHW
+            return "weight", leaf.transpose(3, 2, 0, 1)
+        if leaf.ndim == 2:  # (in, out) -> (out, in)
+            return "weight", leaf.T
+        raise ValueError(f"{path}: unexpected kernel rank {leaf.ndim}")
+    if name == "weight" and leaf.ndim == 4:  # FIRConv2d: HWIO -> OIHW
+        return "weight", leaf.transpose(3, 2, 0, 1)
+    if name in ("re_kernel", "im_kernel"):  # transposed conv: HWIO -> (I, O, H, W)
+        return name[:2] + "_weight", leaf.transpose(2, 3, 0, 1)
+    if name == "scale":
+        return "weight", leaf
+    if name in _AS_IS or name in ("re_bias", "im_bias"):
+        return name, leaf
+    raise ValueError(f"{path}: unknown parameter name {name!r}")
+
+
+def state_dict_from_jax(tree: Mapping, batch_stats: Optional[Mapping] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Map a JAX parameter tree (and, for a model with BatchNorm, its
+    ``batch_stats`` tree) to the port's state_dict names and layouts."""
     sd = {}
     for path, leaf in flatten_tree(tree).items():
         *parents, name = path.split("/")
-        if name == "kernel":
-            if leaf.ndim == 4:  # HWIO -> OIHW
-                leaf = leaf.transpose(3, 2, 0, 1)
-            elif leaf.ndim == 2:  # (in, out) -> (out, in)
-                leaf = leaf.T
-            else:
-                raise ValueError(f"{path}: unexpected kernel rank {leaf.ndim}")
-            name = "weight"
-        elif name == "scale":
-            name = "weight"
-        elif name not in ("bias", "W", "b"):
-            raise ValueError(f"{path}: unknown parameter name {name!r}")
+        name, leaf = _leaf_to_port(path, name, leaf)
         sd[".".join([*parents, name])] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    for path, leaf in flatten_tree(batch_stats or {}).items():
+        if path.split("/")[-1] not in _STATS:
+            raise ValueError(f"{path}: unknown batch statistic")
+        sd[path.replace("/", ".")] = torch.from_numpy(np.array(leaf, dtype=np.float32))
     return sd
 
 
-def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """Inverse of :func:`state_dict_from_jax`: the port's parameters as a JAX tree."""
+def state_dict_from_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """:func:`state_dict_from_jax` of a tree that is either a parameter tree or
+    a JAX ``variables`` dict (``{"params": ..., "batch_stats": ...}``), as an
+    ``.npz`` of :func:`save_npz` holds one."""
+    if isinstance(tree.get("params"), Mapping):
+        return state_dict_from_jax(tree["params"], tree.get("batch_stats"))
+    return state_dict_from_jax(tree)
+
+
+def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                             collection: str = "params") -> Dict:
+    """Inverse of :func:`state_dict_from_jax`: the port's parameters as a JAX
+    tree (``collection="params"``), or its BatchNorm running statistics as the
+    ``batch_stats`` tree (``collection="batch_stats"``)."""
     flat = {}
     for key, value in state_dict.items():
         *parents, name = key.split(".")
+        if (name in _STATS) != (collection == "batch_stats"):
+            continue
         leaf = value.detach().float().cpu().numpy()
         if name == "weight":
-            if leaf.ndim == 4:  # OIHW -> HWIO
+            if leaf.ndim == 4 and parents[-1:] in ([], ["Conv2d_0"]):  # FIRConv2d's "weight"
+                leaf = leaf.transpose(2, 3, 1, 0)
+            elif leaf.ndim == 4:  # OIHW -> HWIO
                 leaf, name = leaf.transpose(2, 3, 1, 0), "kernel"
             elif leaf.ndim == 2:
                 leaf, name = leaf.T, "kernel"
-            else:  # GroupNorm
+            else:  # GroupNorm, BatchNorm
                 name = "scale"
-        flat["/".join([*parents, name])] = np.ascontiguousarray(leaf)
+        elif name in ("re_weight", "im_weight"):  # transposed conv: (I, O, H, W) -> HWIO
+            leaf, name = leaf.transpose(2, 3, 0, 1), name[:2] + "_kernel"
+        flat["/".join([*parents, name])] = np.array(leaf, order="C")  # a copy, never a view
     return unflatten_tree(flat)
 
 
-def params_from_jax(tree: Mapping, backbone: str = "ncsnpp", **config) -> Dict[str, torch.Tensor]:
-    """JAX ``variables["params"]`` of the ``backbone`` network built with
-    ``config`` -> the port's state_dict. Strict-loads it into the registry's
-    class for ``backbone`` first, so a leaf left over, missing or of the wrong
-    shape raises."""
+def jax_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The JAX ``variables`` dict of a port state_dict: ``params``, and
+    ``batch_stats`` where the model has BatchNorm statistics."""
+    variables = {"params": jax_tree_from_state_dict(state_dict)}
+    stats = jax_tree_from_state_dict(state_dict, "batch_stats")
+    if stats:
+        variables["batch_stats"] = stats
+    return variables
+
+
+def params_from_jax(tree: Mapping, backbone: str = "ncsnpp", batch_stats: Optional[Mapping] = None,
+                    **config) -> Dict[str, torch.Tensor]:
+    """JAX ``variables["params"]`` (and ``variables["batch_stats"]``) of the
+    ``backbone`` network built with ``config`` -> the port's state_dict.
+    Strict-loads it into the registry's class for ``backbone`` first, so a
+    leaf left over, missing or of the wrong shape raises."""
     from .models import BackboneRegistry
 
-    sd = state_dict_from_jax(tree)
+    sd = state_dict_from_jax(tree, batch_stats)
     BackboneRegistry.get_by_name(backbone)(**config).load_state_dict(sd, strict=True)
     return sd
 
@@ -432,6 +493,186 @@ def export_ncsnpp_state_dict(params: Dict[str, Any], **config) -> Dict[str, np.n
 
 
 # ---------------------------------------------------------------------------------------
+# DCUNet: the reference's module names <-> the Flax tree (params and batch_stats)
+# ---------------------------------------------------------------------------------------
+
+def _t_convT(w):
+    """torch ConvTranspose (in, out, kh, kw) -> (kh, kw, in, out)."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1)))
+
+
+_ti_convT = _t_convT  # the same permutation back: (kh, kw, in, out) -> (in, out, kh, kw)
+
+
+def _dcunet_layout(dcunet_architecture: str = "DilDCUNet-v2", dcunet_time_embedding: str = "gfp",
+                   dcunet_temb_layers_global: int = 2, dcunet_temb_layers_local: int = 1,
+                   **ignored):
+    """(encoder count, decoder count, time embedding, global and local layers)."""
+    from .models.dcunet import DCUNET_ARCHITECTURES
+
+    encoders, decoders = DCUNET_ARCHITECTURES[dcunet_architecture]
+    return (len(encoders), len(decoders) - 1, dcunet_time_embedding, dcunet_temb_layers_global,
+            dcunet_temb_layers_local)
+
+
+def convert_dcunet_state_dict(sd: Dict[str, np.ndarray], **config
+                              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A reference DCUNet state_dict -> the JAX (params, batch_stats) trees:
+    complex convs (``{re,im}_module``), transposed ones (``re_kernel`` /
+    ``im_kernel`` in direct form), ``bN`` norms with their running statistics
+    (``num_batches_tracked`` is dropped) or ``CbN`` affines, and the time
+    embedding (``embed.0`` the Fourier or diffusion-step embedding, then
+    (linear, activation) pairs; per block ``embed_layer``)."""
+    n_enc, n_dec, temb, n_global, n_local = _dcunet_layout(**config)
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    used = set()
+
+    def take(key):
+        used.add(key)
+        return sd[key]
+
+    def maybe(key):
+        return take(key) if key in sd else None
+
+    if temb != "none":
+        w = maybe("embed.0.W")
+        if w is not None:
+            _set(params, ("embed_gfp" if temb == "gfp" else "embed_ds", "W"), w)
+        for i in range(n_global):
+            for part in ("re", "im"):
+                _set(params, (f"embed_global{i}", part, "kernel"),
+                     _t_linear(take(f"embed.{1 + 2 * i}.{part}.weight")))
+                _set(params, (f"embed_global{i}", part, "bias"),
+                     take(f"embed.{1 + 2 * i}.{part}.bias"))
+
+    def complex_conv(tprefix, path, transposed=False):
+        for part in ("re", "im"):
+            w = take(f"{tprefix}.{part}_module.weight")
+            b = maybe(f"{tprefix}.{part}_module.bias")
+            if transposed:
+                _set(params, path + (f"{part}_kernel",), _t_convT(w))
+                if b is not None:
+                    _set(params, path + (f"{part}_bias",), b)
+            else:
+                _set(params, path + (part, "kernel"), _t_conv(w))
+                if b is not None:
+                    _set(params, path + (part, "bias"), b)
+
+    def norm(tprefix, path):
+        if f"{tprefix}.re_module.weight" in sd:  # bN
+            for part in ("re", "im"):
+                _set(params, path + (part, "scale"), take(f"{tprefix}.{part}_module.weight"))
+                _set(params, path + (part, "bias"), take(f"{tprefix}.{part}_module.bias"))
+                _set(stats, path + (part, "mean"),
+                     take(f"{tprefix}.{part}_module.running_mean"))
+                _set(stats, path + (part, "var"), take(f"{tprefix}.{part}_module.running_var"))
+                maybe(f"{tprefix}.{part}_module.num_batches_tracked")
+        else:  # CbN
+            for p in ("Wrr", "Wri", "Wii", "Br", "Bi"):
+                _set(params, path + (p,), take(f"{tprefix}.{p}"))
+
+    def embed_layer(tprefix, path):
+        for i in range(max(0, n_local - 1)):
+            for part in ("re", "im"):
+                _set(params, path + (f"lin{i}", part, "kernel"),
+                     _t_linear(take(f"{tprefix}.{2 * i}.{part}.weight")))
+                _set(params, path + (f"lin{i}", part, "bias"),
+                     take(f"{tprefix}.{2 * i}.{part}.bias"))
+        f = 2 * max(0, n_local - 1)
+        for part in ("re", "im"):
+            _set(params, path + ("feature_dense", part, "kernel"),
+                 _t_linear(take(f"{tprefix}.{f}.dense.{part}.weight")))
+            _set(params, path + ("feature_dense", part, "bias"),
+                 take(f"{tprefix}.{f}.dense.{part}.bias"))
+
+    for kind, n, conv in (("encoder", n_enc, "conv"), ("decoder", n_dec, "deconv")):
+        for i in range(n):
+            complex_conv(f"{kind}s.{i}.{conv}", (f"{kind}{i}", conv), transposed=conv == "deconv")
+            norm(f"{kind}s.{i}.norm", (f"{kind}{i}", "norm"))
+            if temb != "none":
+                embed_layer(f"{kind}s.{i}.embed_layer", (f"{kind}{i}", "embed_layer"))
+    complex_conv("output_layer", ("output_layer",), transposed=True)
+    missed = [k for k in sd if k not in used]
+    if missed:
+        raise ValueError(f"unconverted torch keys: {missed[:10]} (+{max(0, len(missed)-10)} more)")
+    return params, stats
+
+
+def export_dcunet_state_dict(params: Dict[str, Any], batch_stats: Optional[Dict[str, Any]] = None,
+                             **config) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`convert_dcunet_state_dict`: the JAX (params,
+    batch_stats) trees -> a reference DCUNet state_dict, in the reference's
+    registration order, with the ``num_batches_tracked`` counters (0) that
+    torch's strict load expects."""
+    n_enc, n_dec, temb, n_global, n_local = _dcunet_layout(**config)
+    reader, stats = _TreeReader(params), _TreeReader(batch_stats or {})
+    sd: Dict[str, np.ndarray] = {}
+
+    if temb != "none":
+        w = reader.get(("embed_gfp" if temb == "gfp" else "embed_ds", "W"))
+        if w is not None:
+            sd["embed.0.W"] = w
+        for i in range(n_global):
+            for part in ("re", "im"):
+                sd[f"embed.{1 + 2 * i}.{part}.weight"] = _ti_linear(
+                    reader.get((f"embed_global{i}", part, "kernel")))
+                sd[f"embed.{1 + 2 * i}.{part}.bias"] = reader.get((f"embed_global{i}", part,
+                                                                   "bias"))
+
+    def complex_conv(tprefix, path, transposed=False):
+        for part in ("re", "im"):
+            if transposed:
+                w, b = (reader.get(path + (f"{part}_kernel",)),
+                        reader.get(path + (f"{part}_bias",)))
+            else:
+                w, b = reader.get(path + (part, "kernel")), reader.get(path + (part, "bias"))
+            sd[f"{tprefix}.{part}_module.weight"] = (_ti_convT if transposed else _ti_conv)(w)
+            if b is not None:
+                sd[f"{tprefix}.{part}_module.bias"] = b
+
+    def norm(tprefix, path):
+        if reader.get(path + ("re", "scale")) is not None:  # bN
+            for part in ("re", "im"):
+                sd[f"{tprefix}.{part}_module.weight"] = reader.get(path + (part, "scale"))
+                sd[f"{tprefix}.{part}_module.bias"] = reader.get(path + (part, "bias"))
+                sd[f"{tprefix}.{part}_module.running_mean"] = stats.get(path + (part, "mean"))
+                sd[f"{tprefix}.{part}_module.running_var"] = stats.get(path + (part, "var"))
+                sd[f"{tprefix}.{part}_module.num_batches_tracked"] = np.asarray(0, np.int64)
+        else:  # CbN
+            for p in ("Wrr", "Wri", "Wii", "Br", "Bi"):
+                sd[f"{tprefix}.{p}"] = reader.get(path + (p,))
+
+    def embed_layer(tprefix, path):
+        for i in range(max(0, n_local - 1)):
+            for part in ("re", "im"):
+                sd[f"{tprefix}.{2 * i}.{part}.weight"] = _ti_linear(
+                    reader.get(path + (f"lin{i}", part, "kernel")))
+                sd[f"{tprefix}.{2 * i}.{part}.bias"] = reader.get(path + (f"lin{i}", part,
+                                                                          "bias"))
+        f = 2 * max(0, n_local - 1)
+        for part in ("re", "im"):
+            sd[f"{tprefix}.{f}.dense.{part}.weight"] = _ti_linear(
+                reader.get(path + ("feature_dense", part, "kernel")))
+            sd[f"{tprefix}.{f}.dense.{part}.bias"] = reader.get(path + ("feature_dense", part,
+                                                                        "bias"))
+
+    for kind, n, conv in (("encoder", n_enc, "conv"), ("decoder", n_dec, "deconv")):
+        for i in range(n):
+            complex_conv(f"{kind}s.{i}.{conv}", (f"{kind}{i}", conv), transposed=conv == "deconv")
+            norm(f"{kind}s.{i}.norm", (f"{kind}{i}", "norm"))
+            if temb != "none":
+                embed_layer(f"{kind}s.{i}.embed_layer", (f"{kind}{i}", "embed_layer"))
+    complex_conv("output_layer", ("output_layer",), transposed=True)
+    missed = reader.unconsumed() + stats.unconsumed()
+    if missed:
+        raise ValueError(
+            f"unexported param leaves: {missed[:10]} (+{max(0, len(missed)-10)} more)")
+    return sd
+
+
+# ---------------------------------------------------------------------------------------
 # Lightning .ckpt <-> the port's checkpoint directories
 # ---------------------------------------------------------------------------------------
 
@@ -451,10 +692,21 @@ def _trainable(sd: Mapping[str, Any]) -> List[str]:
             and not _is_fourier_w(k)]
 
 
-def _check_ncsnpp(backbone: str) -> None:
-    if not backbone.startswith("ncsnpp"):
-        raise NotImplementedError(f"backbone {backbone!r}: only the NCSN++ family converts "
-                                  "(the DCUNet half is ROADMAP A11)")
+def _check_backbone(backbone: str) -> None:
+    if backbone not in ("ncsnpp", "ncsnpp_v2", "ncsnpp_48k", "dcunet"):
+        raise NotImplementedError(f"backbone {backbone!r}: only the NCSN++ family and DCUNet "
+                                  "convert")
+
+
+def _reference_sd(backbone: str, port_sd: Mapping[str, torch.Tensor], config
+                  ) -> Dict[str, np.ndarray]:
+    """A port state_dict (its buffers included) as the reference's backbone
+    state_dict."""
+    params = jax_tree_from_state_dict(port_sd)
+    if backbone == "dcunet":
+        return export_dcunet_state_dict(params, jax_tree_from_state_dict(port_sd, "batch_stats"),
+                                        **config)
+    return export_ncsnpp_state_dict(params, **config)
 
 
 def export_lightning_checkpoint(port_ckpt_dir, out_path) -> Dict[str, Any]:
@@ -468,12 +720,15 @@ def export_lightning_checkpoint(port_ckpt_dir, out_path) -> Dict[str, Any]:
     from .checkpoint import load_checkpoint
 
     state, config = load_checkpoint(port_ckpt_dir)
-    _check_ncsnpp(config.get("backbone", "ncsnpp"))
-    config = dict(config, image_size=int(config.get("n_fft", 510)) // 2 + 1)
+    backbone = config.get("backbone", "ncsnpp")
+    _check_backbone(backbone)
+    if backbone != "dcunet":
+        config = dict(config, image_size=int(config.get("n_fft", 510)) // 2 + 1)
+    model_state = state.get("model_state", {})
 
     def to_reference(port_sd):
-        sd = export_ncsnpp_state_dict(jax_tree_from_state_dict(port_sd), **config)
-        return {f"dnn.{k}": torch.from_numpy(v) for k, v in sd.items()}
+        sd = _reference_sd(backbone, {**port_sd, **model_state}, config)
+        return {f"dnn.{k}": torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
     sd = to_reference(state["params"])
     ckpt = {"state_dict": sd, "hyper_parameters": dict(config),
@@ -507,13 +762,17 @@ def convert_lightning_checkpoint(ckpt_path, out_dir=None):
     sd = {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
           for k, v in ckpt["state_dict"].items() if not k.startswith("pesq_loss.")}
     backbone = hparams.get("backbone", "ncsnpp")
-    _check_ncsnpp(backbone)
+    _check_backbone(backbone)
     model = ScoreModel(backbone, hparams.get("sde", "ouve"),
                        **{k: v for k, v in hparams.items() if k not in _NOT_MODEL_HPARAMS})
+    buffers = set(dict(model.dnn.named_buffers()))
 
     def to_port(reference_sd):
         dnn = {k[len("dnn."):]: v for k, v in reference_sd.items() if k.startswith("dnn.")}
-        port_sd = state_dict_from_jax(convert_ncsnpp_state_dict(dnn, **hparams))
+        if backbone == "dcunet":
+            port_sd = state_dict_from_jax(*convert_dcunet_state_dict(dnn, **hparams))
+        else:
+            port_sd = state_dict_from_jax(convert_ncsnpp_state_dict(dnn, **hparams))
         model.dnn.load_state_dict(port_sd, strict=True)  # raises on a leaf left over or missing
         return {k: port_sd[k] for k in model.dnn.state_dict()}  # the port's own order
 
@@ -530,8 +789,12 @@ def convert_lightning_checkpoint(ckpt_path, out_dir=None):
     model.dnn.load_state_dict(ema_params, strict=True)
     step = int(ckpt.get("global_step", 0))
     if out_dir is not None:
-        save_checkpoint(out_dir, {"step": step, "params": params, "ema_params": ema_params,
-                                  "num_updates": step}, model.config_dict())
+        tree = {"step": step, "params": {k: v for k, v in params.items() if k not in buffers},
+                "ema_params": {k: v for k, v in ema_params.items() if k not in buffers},
+                "num_updates": step}
+        if buffers:
+            tree["model_state"] = {k: params[k] for k in params if k in buffers}
+        save_checkpoint(out_dir, tree, model.config_dict())
     return model
 
 
@@ -541,7 +804,7 @@ def main(argv=None) -> None:
     directory in exports it to the ``.ckpt`` <out>."""
     parser = argparse.ArgumentParser(
         description="Two-way sp-uhh/sgmse Lightning .ckpt <-> port checkpoint converter "
-                    "(NCSN++ family): a .ckpt file in is imported to a checkpoint "
+                    "(NCSN++ family and DCUNet): a .ckpt file in is imported to a checkpoint "
                     "directory, a checkpoint directory in is exported to a .ckpt.")
     parser.add_argument("input", help="Lightning .ckpt file or port checkpoint directory")
     parser.add_argument("out", help="output checkpoint directory or .ckpt path")

@@ -144,7 +144,7 @@ def build_model(args) -> ScoreModel:
                    centered=args.centered, precision=args.precision or "float32")
     cfg["t_eps"] = args.t_eps
     model = ScoreModel.from_config(cfg)
-    model.dnn.load_state_dict(convert.state_dict_from_jax(convert.load_npz(args.weights)))
+    model.dnn.load_state_dict(convert.state_dict_from_variables(convert.load_npz(args.weights)))
     return model
 
 

@@ -22,7 +22,11 @@ times:
   67 TFLOP/s, the H100 SXM's published peaks.
 
 Per network evaluation, each is the sum over signatures of its time times the
-signature's calls per evaluation. With ``--train`` the calls are those of one
+signature's calls per evaluation. ``--variant`` takes the calls of one of the
+``VARIANTS`` instead: the 48 kHz net with residual pyramids, whose K6 (FIR +
+conv) makes K1 calls at up = down = 1 (yardstick: cuDNN's stride-1
+depthwise convolution), or the full-width ``ncsnpp`` with DDPM blocks, ``cat``
+combine, no FIR and elu, whose K2 calls run without SiLU. With ``--train`` the calls are those of one
 train step of the flagship at the JAX defaults (B=8, F=T=256, float32, remat
 off; ``--batch`` sets another batch), forward and backward: K1 and K2
 forward, the K1 adjoint
@@ -53,6 +57,14 @@ B, F_BINS, T_FRAMES = 4, 256, 256  # four 2.04-s utterances
 TRAIN_B = 8  # the JAX training CLI's default batch
 # Frequency bins of each backbone's full-width input: n_fft 510 at 16 kHz, 1534 at 48 kHz.
 BINS = {"ncsnpp": F_BINS, "ncsnpp_48k": 768}
+# The NCSN++ branches beyond the flagship's, at full width: (backbone, settings). The 48 kHz
+# net with residual pyramids runs K6 (cuDNN + K1 at up = down = 1) in each pyramid level;
+# the variant runs K2 without SiLU (elu after it) and no K1 (no FIR).
+VARIANTS = {
+    "48k_residual": ("ncsnpp_48k", dict(progressive="residual", progressive_input="residual")),
+    "ncsnpp_variant": ("ncsnpp", dict(resblock_type="ddpm", progressive_combine="cat",
+                                      fir=False, nonlinearity="elu")),
+}
 SEED = 0
 REPS = 25
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -66,6 +78,9 @@ K1_LIBRARY_NOTE = ("depthwise cuDNN: F.conv2d(stride 2, padding 1, groups C) wit
 K1_ADJOINT_LIBRARY_NOTE = ("depthwise cuDNN backward-input (aten.convolution_backward, "
                            "input mask only) of the K1 yardstick's convolution; one call "
                            "per tensor of a pair")
+K6_LIBRARY_NOTE = ("depthwise cuDNN at stride 1: F.conv2d(padding p, groups C) with the "
+                   "flipped FIR for a K6 FIR pass (up = down = 1, pads (p, p)); its "
+                   "backward-input for the adjoint")
 K2B_LIBRARY_NOTE = ("aten.native_group_norm_backward on NCHW copies: GroupNorm only (no "
                     "SiLU, no pre-bias), dx, dgamma and dbeta")
 LIBRARY_NOTES = {"upfirdn2d": K1_LIBRARY_NOTE, "upfirdn2d_adjoint": K1_ADJOINT_LIBRARY_NOTE,
@@ -138,13 +153,13 @@ def routed(calls=None, plain=False):
             gn.group_norm_act_bwd = orig["bwd"]
 
 
-def full_model(dev, precision="float32", backbone="ncsnpp"):
-    """The backbone's default (full-width) ScoreModel with seeded weights.
-    init_scale 1 instead of the DDPM 0 (1e-10), so that every layer contributes
-    to the output."""
+def full_model(dev, precision="float32", backbone="ncsnpp", **settings):
+    """The backbone's default (full-width) ScoreModel, with ``settings`` (a
+    ``VARIANTS`` entry's), with seeded weights. init_scale 1 instead of the
+    DDPM 0 (1e-10), so that every layer contributes to the output."""
     from sgmse_tpu_torch.model import ScoreModel
 
-    model = ScoreModel(backbone, "ouve", init_scale=1.0, precision=precision)
+    model = ScoreModel(backbone, "ouve", init_scale=1.0, precision=precision, **settings)
     model.init_params(torch.Generator().manual_seed(SEED))
     return model.to(dev, memory_format=torch.channels_last).eval()
 
@@ -199,7 +214,19 @@ def make_case(name, sig, dtype, dev, gen):
         case["plain"] = lambda: tuple(ufd.upfirdn2d_plain(x, k_dev, up, down, pad) for x in xs)
         c = shape[1]
         oh, ow = (ufd._out_size(n_in, 4, up, down, *pad) for n_in in shape[2:])
-        if name == "upfirdn2d":
+        same = (up, down) == (1, 1) and pad[0] == pad[1] and pad[0] >= 0
+        if same and name == "upfirdn2d":  # K6's FIR pass: a stride-1 depthwise conv
+            w = torch.flip(k_dev, [0, 1])[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
+            case["library"] = lambda: tuple(F.conv2d(x, w, padding=pad[0], groups=c)
+                                            for x in xs)
+        elif same:  # its adjoint: the backward-input of that conv, whose pad is 3 - p
+            w = k_dev[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
+            like = torch.empty((shape[0], c, oh, ow), dtype=dtype, device=dev).contiguous(
+                memory_format=torch.channels_last)
+            case["library"] = lambda: tuple(torch.ops.aten.convolution_backward(
+                x, like, w, None, [1, 1], [3 - pad[0]] * 2, [1, 1], False, [0, 0], c,
+                [True, False, False])[0] for x in xs)
+        elif name == "upfirdn2d":
             if (up, down, tuple(pad)) == (1, 2, (1, 1)):
                 w = torch.flip(k_dev, [0, 1])[None, None].expand(c, 1, 4, 4).to(dtype).contiguous()
                 case["library"] = lambda: tuple(F.conv2d(x, w, stride=2, padding=1, groups=c)
@@ -320,9 +347,9 @@ def time_case(case) -> dict:
     return row
 
 
-def record_calls(dev, backbone="ncsnpp"):
+def record_calls(dev, backbone="ncsnpp", **settings):
     """The kernel-dispatcher calls of one full-width evaluation (plain route)."""
-    model = full_model(dev, backbone=backbone)
+    model = full_model(dev, backbone=backbone, **settings)
     x, y, t = network_inputs(dev, BINS[backbone])
     with torch.inference_mode(), routed(calls=[], plain=True) as calls:
         out = model.dnn(x, y, t)
@@ -363,7 +390,9 @@ def per_nfe(rows) -> dict:
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=(None if any(r["library_ms"] is None for r in mine)
                         else total("library_ms")),
-            library_note=LIBRARY_NOTES[name])
+            library_note=LIBRARY_NOTES[name] + (
+                "; " + K6_LIBRARY_NOTE if any("up=1 down=1" in r.get("sig", "") for r in mine)
+                else ""))
     return out
 
 
@@ -379,6 +408,10 @@ def main(argv=None) -> dict:
                         help="checkout whose sgmse_tpu_torch to time (default: this one)")
     parser.add_argument("--backbone", choices=sorted(BINS), default="ncsnpp",
                         help="whose full-width call signatures to time")
+    parser.add_argument("--variant", choices=sorted(VARIANTS), default=None,
+                        help="time the call signatures of this NCSN++ variant instead "
+                             "(48k_residual: K1 at the K6 signatures; ncsnpp_variant: K2 "
+                             "without SiLU)")
     parser.add_argument("--train", action="store_true",
                         help="time the calls of one flagship train step (float32), "
                              "forward and backward, per step")
@@ -396,7 +429,8 @@ def main(argv=None) -> dict:
         fwd, bwd = record_train_calls(full_model(dev), dev, args.batch)
         counts, dtype = per_forward(fwd + bwd), torch.float32
     else:
-        calls, _, model = record_calls(dev, args.backbone)
+        backbone, settings = VARIANTS[args.variant] if args.variant else (args.backbone, {})
+        calls, _, model = record_calls(dev, backbone, **settings)
         del model
         counts, dtype = per_forward(calls), torch.bfloat16
     torch.cuda.empty_cache()
@@ -404,7 +438,7 @@ def main(argv=None) -> dict:
     rows = [dict(time_case(make_case(*key, dtype, dev, gen)), per_forward=n)
             for key, n in counts.items()]
     result = dict(card=card(), root=args.root or ".", backbone=args.backbone,
-                  shapes=rows)
+                  variant=args.variant, shapes=rows)
     if args.train:
         result.update(batch=args.batch, dtype="float32", per_train_step=per_nfe(rows))
     else:

@@ -4,7 +4,8 @@ Counterpart of ``sgmse_tpu/model.py``.
 
 Forward contracts, as in the JAX package:
 
-- ``ncsnpp`` and ``ncsnpp_48k``: the legacy ``score = -dnn(x_t, y, t)``;
+- ``ncsnpp``, ``ncsnpp_48k`` and ``dcunet``: the legacy
+  ``score = -dnn(x_t, y, t)``;
 - ``ncsnpp_v2``: EDM-style preconditioning, ``c_in``/``c_out``/``c_skip`` and
   an optional ``network_scaling``. The output is a score for ``score_matching``
   and ``denoiser``, and the clean state for ``data_prediction`` (what the
@@ -21,7 +22,11 @@ Unlike the JAX package, parameters live in the module (``self.dnn``), as
 PyTorch has it; ``init_params(generator)`` draws them from an explicit
 generator, and ``convert.params_from_jax`` loads the JAX package's. Dropout
 is on in ``train()`` mode and off in ``eval()`` mode, where the JAX package
-passes ``train=``.
+passes ``train=``; so is DCUNet's BatchNorm, which in ``train()`` mode
+normalises with the batch's statistics and advances its running statistics
+(buffers of ``self.dnn``, the JAX ``batch_stats``) once per forward, as the
+JAX ``step_loss_with_updates`` does, and in ``eval()`` mode (validation,
+sampling) uses them.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ from .utils.pesq_loss import PesqLoss
 
 _SPEC_KEYS = ("n_fft", "hop_length", "window", "transform_type", "spec_factor",
               "spec_abs_exponent", "num_frames")
-PORTED = {"backbone": ("ncsnpp", "ncsnpp_v2", "ncsnpp_48k"), "sde": ("ouve", "sbve")}
+PORTED = {"backbone": ("ncsnpp", "ncsnpp_v2", "ncsnpp_48k", "dcunet"), "sde": ("ouve", "sbve")}
 
 
 def _bcast(c):

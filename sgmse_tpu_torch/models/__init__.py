@@ -2,5 +2,6 @@
 BackboneRegistry."""
 from .registry import BackboneRegistry
 from .ncsnpp import NCSNpp, NCSNpp_48k, NCSNpp_v2, NCSNppBase
+from .dcunet import DCUNet
 
-__all__ = ["BackboneRegistry", "NCSNpp", "NCSNpp_48k", "NCSNpp_v2", "NCSNppBase"]
+__all__ = ["BackboneRegistry", "DCUNet", "NCSNpp", "NCSNpp_48k", "NCSNpp_v2", "NCSNppBase"]

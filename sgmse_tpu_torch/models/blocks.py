@@ -170,14 +170,16 @@ class DDPMDense(nn.Module):
 
 class GroupNorm(nn.Module):
     """GroupNorm(min(ch//4, 32), eps=1e-6), optionally followed by SiLU in the same
-    kernel. Output in the compute ``dtype`` (float32 when None)."""
+    kernel, or by another activation ``act`` after it. Output in the compute
+    ``dtype`` (float32 when None)."""
 
-    def __init__(self, ch: int, silu: bool = True, dtype=None, eps: float = 1e-6):
+    def __init__(self, ch: int, silu: bool = True, dtype=None, eps: float = 1e-6,
+                 act: Optional[Callable] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.num_groups = gn.num_groups_for(ch)
-        self.silu, self.dtype, self.eps = silu, dtype, eps
+        self.silu, self.dtype, self.eps, self.act = silu, dtype, eps, act
 
     def init_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.weight)
@@ -187,8 +189,17 @@ class GroupNorm(nn.Module):
         """GroupNorm of x + pre_bias[:, :, None, None] (pre_bias: (B, C) in the
         compute dtype, added in float32 inside the kernel), then SiLU if ``silu``."""
         x = x.to(self.dtype or torch.float32).contiguous(memory_format=CL)
-        return gn.group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps, self.silu,
-                                 pre_bias)
+        y = gn.group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps, self.silu,
+                              pre_bias)
+        return y if self.act is None else self.act(y)
+
+
+def norm_act(ch: int, nonlinearity: str = "swish", dtype=None) -> GroupNorm:
+    """GroupNorm then the activation ``nonlinearity``: swish fused into the
+    kernel (K2 with SiLU), any other applied after K2 without SiLU."""
+    if nonlinearity == "swish":
+        return GroupNorm(ch, silu=True, dtype=dtype)
+    return GroupNorm(ch, silu=False, dtype=dtype, act=get_act(nonlinearity))
 
 
 class GaussianFourierProjection(nn.Module):
@@ -269,32 +280,175 @@ class AttnBlockpp(nn.Module):
         return (x + out) / math.sqrt(2.0)
 
 
+class FIRConv2d(nn.Module):
+    """Conv2d fused with FIR up- or downsampling (JAX ``FIRConv2d``): K6,
+    cuDNN's convolution and one K1 pass (``ufd.upsample_conv_2d`` /
+    ``ufd.conv_downsample_2d``). ``weight`` is OIHW, drawn with the DDPM rule;
+    ``bias`` is zero-initialised."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, up: bool = False,
+                 down: bool = False, resample_kernel: Sequence[int] = (1, 3, 3, 1),
+                 use_bias: bool = True, dtype=None):
+        super().__init__()
+        assert not (up and down)
+        assert kernel >= 1 and kernel % 2 == 1
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+        self.up, self.down, self.dtype = up, down, dtype
+        self.resample_kernel = tuple(resample_kernel)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        out_ch, in_ch, kh, kw = self.weight.shape
+        ddpm_init_(self.weight, 1.0, in_ch * kh * kw, out_ch * kh * kw, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.dtype or torch.float32
+        x, w = x.to(dt), self.weight.to(dt)
+        if self.up:
+            x = ufd.upsample_conv_2d(x, w, k=self.resample_kernel)
+        elif self.down:
+            x = ufd.conv_downsample_2d(x, w, k=self.resample_kernel)
+        else:
+            x = F.conv2d(x, w, padding=w.shape[-1] // 2)
+        if self.bias is not None:
+            x = x + self.bias.to(dt)[:, None, None]
+        return x
+
+
+class Upsample(nn.Module):
+    """2x upsampling, FIR or nearest, with an optional conv (JAX ``Upsample``):
+    FIR with conv is K6 (``Conv2d_0``), FIR alone K1, nearest a repeat then
+    the 3x3 ``Conv_0``."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel: Sequence[int] = (1, 3, 3, 1), dtype=None):
+        super().__init__()
+        out_ch = out_ch if out_ch else in_ch
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
+        if with_conv and fir:
+            self.Conv2d_0 = FIRConv2d(in_ch, out_ch, 3, up=True, resample_kernel=fir_kernel,
+                                      dtype=dtype)
+        elif with_conv:
+            self.Conv_0 = Conv3x3(in_ch, out_ch, dtype=dtype)
+
+    def forward(self, x):
+        x = x.contiguous(memory_format=CL)
+        if not self.fir:
+            h = ufd.naive_upsample_2d(x, factor=2)
+            return self.Conv_0(h) if self.with_conv else h
+        if not self.with_conv:
+            return ufd.upsample_2d(x, self.fir_kernel, factor=2)
+        return self.Conv2d_0(x)
+
+
+class Downsample(nn.Module):
+    """2x downsampling, FIR or pooling, with an optional conv (JAX
+    ``Downsample``): FIR with conv is K6 (``Conv2d_0``), FIR alone K1; without
+    FIR a (0, 1) pad and the stride-2 3x3 ``Conv_0``, or a 2x2 mean."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel: Sequence[int] = (1, 3, 3, 1), dtype=None):
+        super().__init__()
+        out_ch = out_ch if out_ch else in_ch
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
+        if with_conv and fir:
+            self.Conv2d_0 = FIRConv2d(in_ch, out_ch, 3, down=True, resample_kernel=fir_kernel,
+                                      dtype=dtype)
+        elif with_conv:
+            self.Conv_0 = Conv3x3(in_ch, out_ch, stride=2, padding=0, dtype=dtype)
+
+    def forward(self, x):
+        x = x.contiguous(memory_format=CL)
+        if not self.fir:
+            if self.with_conv:
+                return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
+            return ufd.naive_downsample_2d(x, factor=2)
+        if not self.with_conv:
+            return ufd.downsample_2d(x, self.fir_kernel, factor=2)
+        return self.Conv2d_0(x)
+
+
+def _dropout(h, rate: float, training: bool, generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout`` in ``train()`` mode: keep with probability 1 - rate,
+    scale by its inverse; the mask from ``generator``."""
+    if not training or rate == 0.0:
+        return h
+    keep = 1.0 - rate
+    mask = torch.empty(h.shape, device=h.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+
+class ResnetBlockDDPMpp(nn.Module):
+    """DDPM-style residual block (JAX ``ResnetBlockDDPMpp``): norm, act, 3x3,
+    the time-embedding bias (fused into GroupNorm_1's kernel, as in the BigGAN
+    block), norm, act, dropout, 3x3; where the channel count changes, the
+    shortcut is the 3x3 ``Conv_2`` (``conv_shortcut``) or the 1x1 ``NIN_0``."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, nonlinearity: str = "swish",
+                 conv_shortcut: bool = False, dropout: float = 0.1, skip_rescale: bool = False,
+                 init_scale: float = 0.0, temb_dim: Optional[int] = None, dtype=None):
+        super().__init__()
+        out_ch = out_ch if out_ch else in_ch
+        self.act = get_act(nonlinearity)
+        self.dropout, self.skip_rescale = dropout, skip_rescale
+        self.GroupNorm_0 = norm_act(in_ch, nonlinearity, dtype)
+        self.Conv_0 = Conv3x3(in_ch, out_ch, dtype=dtype)
+        if temb_dim is not None:
+            self.Dense_0 = DDPMDense(temb_dim, out_ch, dtype=dtype)
+        self.GroupNorm_1 = norm_act(out_ch, nonlinearity, dtype)
+        self.Conv_1 = Conv3x3(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = Conv3x3(in_ch, out_ch, dtype=dtype)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
+
+    def forward(self, x, temb=None, generator: Optional[torch.Generator] = None):
+        h = self.Conv_0(self.GroupNorm_0(x))
+        bias = None if temb is None else self.Dense_0(self.act(temb))
+        h = _dropout(self.GroupNorm_1(h, bias), self.dropout, self.training, generator)
+        h = self.Conv_1(h)
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        elif hasattr(self, "NIN_0"):
+            x = self.NIN_0(x)
+        if not self.skip_rescale:
+            return x + h
+        return (x + h) / math.sqrt(2.0)
+
+
 class ResnetBlockBigGANpp(nn.Module):
     """BigGAN-style residual block with optional FIR up/down.
 
-    The block's activation is swish, fused into the GroupNorm kernel, and so is
-    the time-embedding bias before GroupNorm_1, which the JAX block adds to h in
-    the compute dtype: the port adds it in float32, so in bfloat16 it skips one
-    rounding of the sum. ``dropout`` applies after GroupNorm_1 in ``train()``
-    mode only (flax ``nn.Dropout``: keep with probability 1 - rate, scale by
-    its inverse), drawing its mask from the ``generator`` given to forward.
+    The block's activation is ``nonlinearity``: swish is fused into the
+    GroupNorm kernel, any other runs after it. The time-embedding bias before
+    GroupNorm_1, which the JAX block adds to h in the compute dtype, is fused
+    into the kernel too: the port adds it in float32, so in bfloat16 it skips
+    one rounding of the sum. ``dropout`` applies after GroupNorm_1 in
+    ``train()`` mode only (flax ``nn.Dropout``: keep with probability 1 - rate,
+    scale by its inverse), drawing its mask from the ``generator`` given to
+    forward.
     """
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None, up: bool = False,
                  down: bool = False, dropout: float = 0.0, fir: bool = False,
                  fir_kernel: Sequence[int] = (1, 3, 3, 1), skip_rescale: bool = True,
-                 init_scale: float = 0.0, temb_dim: Optional[int] = None, dtype=None):
+                 init_scale: float = 0.0, temb_dim: Optional[int] = None, dtype=None,
+                 nonlinearity: str = "swish"):
         super().__init__()
         out_ch = out_ch if out_ch else in_ch
         self.up, self.down, self.fir = up, down, fir
         self.dropout = dropout
         self.fir_kernel = tuple(fir_kernel)
         self.skip_rescale = skip_rescale
-        self.GroupNorm_0 = GroupNorm(in_ch, silu=True, dtype=dtype)
+        self.act = get_act(nonlinearity)
+        self.GroupNorm_0 = norm_act(in_ch, nonlinearity, dtype)
         self.Conv_0 = Conv3x3(in_ch, out_ch, dtype=dtype)
         if temb_dim is not None:
             self.Dense_0 = DDPMDense(temb_dim, out_ch, dtype=dtype)
-        self.GroupNorm_1 = GroupNorm(out_ch, silu=True, dtype=dtype)
+        self.GroupNorm_1 = norm_act(out_ch, nonlinearity, dtype)
         self.Conv_1 = Conv3x3(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
         if in_ch != out_ch or up or down:
             self.Conv_2 = Conv1x1(in_ch, out_ch, dtype=dtype)
@@ -307,21 +461,15 @@ class ResnetBlockBigGANpp(nn.Module):
         naive = ufd.naive_upsample_2d if self.up else ufd.naive_downsample_2d
         return naive(h, factor=2), naive(x, factor=2)
 
-    def _dropout(self, h, generator: Optional[torch.Generator]):
-        if not self.training or self.dropout == 0.0:
-            return h
-        keep = 1.0 - self.dropout
-        mask = torch.empty(h.shape, device=h.device).bernoulli_(keep, generator=generator)
-        return torch.where(mask.bool(), h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
-
     def forward(self, x, temb=None, generator: Optional[torch.Generator] = None):
         h = self.GroupNorm_0(x)
         if self.up or self.down:
-            h, x = self._resample(h, x.contiguous(memory_format=CL))
+            h, x = self._resample(h.contiguous(memory_format=CL),
+                                  x.contiguous(memory_format=CL))
         h = self.Conv_0(h)
-        bias = None if temb is None else self.Dense_0(F.silu(temb))
+        bias = None if temb is None else self.Dense_0(self.act(temb))
         h = self.GroupNorm_1(h, bias)
-        h = self._dropout(h, generator)
+        h = _dropout(h, self.dropout, self.training, generator)
         h = self.Conv_1(h)
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)

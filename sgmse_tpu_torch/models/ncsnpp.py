@@ -4,7 +4,7 @@
 The three share one U-Net and differ in defaults: ``ncsnpp_v2`` does not scale
 its output by 1/t (its preconditioning lives in the ScoreModel);
 ``ncsnpp_48k`` has no attention outside the middle block, no progressive
-pyramids (its head is ``out_norm`` GroupNorm+SiLU and the ``out_conv`` 3x3)
+pyramids by default (its head is ``out_norm`` GroupNorm+SiLU and the ``out_conv`` 3x3)
 and applies the output layer before the 1/t scaling.
 
 The complex inputs ``x_t``/``y`` of shape (B, 1, F, T) are packed into a real
@@ -19,11 +19,16 @@ level without parameters raises. The ScoreModel passes its STFT's
 JAX package never reads ``image_size`` (its configs all say 256), so the port
 keeps it only as a config value and as that fallback.
 
-Ported branches: BigGAN res-blocks with FIR resampling, ``output_skip`` and
-``input_skip`` pyramids combined by ``sum`` or no pyramids (``none``), swish,
-Fourier or positional time embedding. The others (``ddpm`` blocks,
-``residual`` pyramids, ``cat`` combine, non-FIR resampling, other
-activations) raise NotImplementedError.
+Every branch of the JAX network is ported: BigGAN or DDPM res-blocks
+(``resblock_type``; DDPM resamples with the ``Upsample``/``Downsample``
+blocks), FIR or nearest/mean resampling (``fir``), ``output_skip``,
+``residual`` or no output pyramid (``progressive``), ``input_skip``,
+``residual`` or no input pyramid (``progressive_input``) combined by ``sum``
+or ``cat``, swish (fused into K2) or elu, relu, lrelu after K2
+(``nonlinearity``), Fourier or positional time embedding. The FIR
+convolutions of the residual pyramids and of the DDPM resamplers are K6
+(``ops.upfirdn2d.upsample_conv_2d`` / ``conv_downsample_2d``: cuDNN plus one
+K1 pass).
 Training, as in the JAX package: ``dropout`` applies inside each res-block in
 ``train()`` mode only, with masks drawn from the ``generator`` given to
 forward; ``remat`` recomputes each res-block in the backward pass
@@ -37,17 +42,17 @@ Call contract: ``forward(x_t, y, t) -> complex64 (B, 1, F, T)``; the legacy
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops import upfirdn2d as ufd
-from .blocks import (CL, AttnBlockpp, Combine, Conv2d, Conv3x3, DDPMDense,
-                     GaussianFourierProjection, GroupNorm, ResnetBlockBigGANpp,
-                     get_timestep_embedding)
+from .blocks import (CL, AttnBlockpp, Combine, Conv2d, Conv3x3, DDPMDense, Downsample,
+                     GaussianFourierProjection, ResnetBlockBigGANpp, ResnetBlockDDPMpp,
+                     Upsample, get_act, get_timestep_embedding, norm_act)
 from .registry import BackboneRegistry
 
 
@@ -94,25 +99,20 @@ class NCSNppBase(nn.Module):
                   if k not in ("self", "__class__", "freq_bins")}
         super().__init__()
         self.config = config
-        unported = {
-            "nonlinearity": (nonlinearity, ("swish",)),
-            "resblock_type": (resblock_type, ("biggan",)),
-            "progressive": (progressive, ("output_skip", "none")),
-            "progressive_input": (progressive_input, ("input_skip", "none")),
-            "progressive_combine": (progressive_combine.lower(), ("sum",)),
-            "fir": (fir, (True,)),
-        }
-        for name, (got, ported) in unported.items():
-            if got not in ported:
-                raise NotImplementedError(f"NCSNpp {name}={got!r} is not ported yet "
-                                          f"(ported: {ported})")
-        if embedding_type not in ("fourier", "positional"):
-            raise ValueError(f"embedding_type {embedding_type} unrecognized.")
+        checks = {"progressive": (progressive, ("none", "output_skip", "residual")),
+                  "progressive_input": (progressive_input, ("none", "input_skip", "residual")),
+                  "embedding_type": (embedding_type, ("fourier", "positional")),
+                  "resblock_type": (resblock_type, ("biggan", "ddpm")),
+                  "progressive_combine": (progressive_combine.lower(), ("sum", "cat"))}
+        for name, (got, known) in checks.items():
+            if got not in known:
+                raise ValueError(f"{name} {got!r} unrecognized (one of {known})")
+        self.act = get_act(nonlinearity)
         self.nf = nf
         self.ch_mult = tuple(ch_mult)
         self.num_res_blocks = num_res_blocks
         self.attn_resolutions = tuple(attn_resolutions)
-        self.fir_kernel = tuple(fir_kernel)
+        self.fir, self.fir_kernel = fir, tuple(fir_kernel)
         self.conditional = conditional
         self.scale_by_sigma = scale_by_sigma
         self.embedding_type = embedding_type
@@ -122,21 +122,33 @@ class NCSNppBase(nn.Module):
         self.freq_bins = image_size if freq_bins is None else freq_bins
         self.precision = precision
         self.remat = remat
-        self.output_skip = progressive == "output_skip"
-        self.input_skip = progressive_input == "input_skip"
+        self.skip_rescale = skip_rescale
+        self.resblock_type = resblock_type
+        self.progressive, self.progressive_input = progressive, progressive_input
+        self.combine_method = progressive_combine.lower()
         dt = self.compute_dtype = compute_dtype_for(precision)
         num_channels = 4
         temb_dim = nf * 4 if conditional else None
 
         def resblock(name, in_ch, out_ch=None, up=False, down=False):
-            self.add_module(name, ResnetBlockBigGANpp(
-                in_ch, out_ch, up=up, down=down, dropout=dropout, fir=fir,
-                fir_kernel=self.fir_kernel,
-                skip_rescale=skip_rescale, init_scale=init_scale, temb_dim=temb_dim, dtype=dt))
+            if resblock_type == "biggan":
+                block = ResnetBlockBigGANpp(
+                    in_ch, out_ch, up=up, down=down, dropout=dropout, fir=fir,
+                    fir_kernel=self.fir_kernel, skip_rescale=skip_rescale, init_scale=init_scale,
+                    temb_dim=temb_dim, dtype=dt, nonlinearity=nonlinearity)
+            else:
+                block = ResnetBlockDDPMpp(
+                    in_ch, out_ch, nonlinearity=nonlinearity, dropout=dropout,
+                    skip_rescale=skip_rescale, init_scale=init_scale, temb_dim=temb_dim, dtype=dt)
+            self.add_module(name, block)
 
         def attn(name, ch):
             self.add_module(name, AttnBlockpp(ch, skip_rescale=skip_rescale,
                                               init_scale=init_scale, dtype=dt))
+
+        def resample(cls, name, in_ch, out_ch=None, with_conv=resamp_with_conv):
+            self.add_module(name, cls(in_ch, out_ch, with_conv=with_conv, fir=fir,
+                                      fir_kernel=self.fir_kernel, dtype=dt))
 
         if embedding_type == "fourier":
             self.fourier = GaussianFourierProjection(embedding_size=nf, scale=fourier_scale)
@@ -149,6 +161,7 @@ class NCSNppBase(nn.Module):
         self.conv_in = Conv3x3(num_channels, nf, dtype=dt)
         hs_c = [nf]
         in_ch = nf
+        pyramid_ch = num_channels
         num_resolutions = len(self.ch_mult)
         for i_level in range(num_resolutions):
             res = self.freq_bins // 2**i_level
@@ -160,10 +173,19 @@ class NCSNppBase(nn.Module):
                     attn(f"down_{i_level}_attn{i_block}", in_ch)
                 hs_c.append(in_ch)
             if i_level != num_resolutions - 1:
-                resblock(f"down_{i_level}_downres", in_ch, down=True)
-                if self.input_skip:
+                if resblock_type == "ddpm":
+                    resample(Downsample, f"down_{i_level}_downsample", in_ch)
+                else:
+                    resblock(f"down_{i_level}_downres", in_ch, down=True)
+                if progressive_input == "input_skip":
                     self.add_module(f"down_{i_level}_combine",
-                                    Combine(num_channels, in_ch, method="sum", dtype=dt))
+                                    Combine(num_channels, in_ch, self.combine_method, dtype=dt))
+                    if self.combine_method == "cat":
+                        in_ch *= 2
+                elif progressive_input == "residual":
+                    resample(Downsample, f"down_{i_level}_pyramid_down", pyramid_ch, in_ch,
+                             with_conv=True)
+                    pyramid_ch = in_ch
                 hs_c.append(in_ch)
 
         resblock("mid_block0", in_ch)
@@ -179,16 +201,27 @@ class NCSNppBase(nn.Module):
                 h_c = in_ch = out_ch
             if res in self.attn_resolutions:
                 attn(f"up_{i_level}_attn", in_ch)
-            if self.output_skip:
-                self.add_module(f"up_{i_level}_pyramid_norm",
-                                GroupNorm(in_ch, silu=True, dtype=dt))
-                self.add_module(f"up_{i_level}_pyramid_conv",
-                                Conv3x3(in_ch, num_channels, init_scale=init_scale, dtype=dt))
+            if progressive != "none":
+                top = i_level == num_resolutions - 1
+                if progressive == "output_skip" or top:
+                    self.add_module(f"up_{i_level}_pyramid_norm",
+                                    norm_act(in_ch, nonlinearity, dt))
+                    conv_out, scale = ((num_channels, init_scale) if progressive == "output_skip"
+                                       else (in_ch, 1.0))
+                    self.add_module(f"up_{i_level}_pyramid_conv",
+                                    Conv3x3(in_ch, conv_out, init_scale=scale, dtype=dt))
+                else:  # residual
+                    resample(Upsample, f"up_{i_level}_pyramid_up", pyramid_ch, in_ch,
+                             with_conv=True)
+                pyramid_ch = in_ch
             if i_level != 0:
-                resblock(f"up_{i_level}_upres", in_ch, up=True)
+                if resblock_type == "ddpm":
+                    resample(Upsample, f"up_{i_level}_upsample", in_ch)
+                else:
+                    resblock(f"up_{i_level}_upres", in_ch, up=True)
         assert not hs_c
-        if not self.output_skip:
-            self.out_norm = GroupNorm(in_ch, silu=True, dtype=dt)
+        if progressive != "output_skip":
+            self.out_norm = norm_act(in_ch, nonlinearity, dt)
             self.out_conv = Conv3x3(in_ch, num_channels, init_scale=init_scale, dtype=dt)
 
         # 1x1 conv 4 -> 2 with torch's default init.
@@ -225,6 +258,10 @@ class NCSNppBase(nn.Module):
 
         return torch.utils.checkpoint.checkpoint(run, x, temb, use_reentrant=False)
 
+    def _merge(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """A residual pyramid's merge with the trunk."""
+        return (a + b) / math.sqrt(2.0) if self.skip_rescale else a + b
+
     def forward(self, x_t: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator`` draws the dropout masks in ``train()`` mode."""
@@ -232,6 +269,7 @@ class NCSNppBase(nn.Module):
         res = lambda name, h: self._resblock(name, h, temb, generator)
         dt = self.compute_dtype
         num_resolutions = len(self.ch_mult)
+        ddpm = self.resblock_type == "ddpm"
 
         # Complex (B, 1, F, T) pair -> real (B, 4, F, T), channels_last.
         x = torch.stack([x_t[:, 0].real, x_t[:, 0].imag, y[:, 0].real, y[:, 0].imag], dim=-1)
@@ -245,7 +283,7 @@ class NCSNppBase(nn.Module):
             temb = get_timestep_embedding(t, self.nf)
         if self.conditional:
             temb = self.temb_dense0(temb)
-            temb = self.temb_dense1(F.silu(temb))
+            temb = self.temb_dense1(self.act(temb))
         else:
             temb = None
 
@@ -262,10 +300,19 @@ class NCSNppBase(nn.Module):
                     h = self._attn(f"down_{i_level}_attn{i_block}", h)
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = res(f"down_{i_level}_downres", hs[-1])
-                if self.input_skip:
-                    input_pyramid = ufd.downsample_2d(input_pyramid, self.fir_kernel, factor=2)
+                if ddpm:
+                    h = m[f"down_{i_level}_downsample"](hs[-1])
+                else:
+                    h = res(f"down_{i_level}_downres", hs[-1])
+                if self.progressive_input == "input_skip":
+                    if self.fir:
+                        input_pyramid = ufd.downsample_2d(input_pyramid, self.fir_kernel, factor=2)
+                    else:
+                        input_pyramid = ufd.naive_downsample_2d(input_pyramid, factor=2)
                     h = m[f"down_{i_level}_combine"](input_pyramid, h)
+                elif self.progressive_input == "residual":
+                    input_pyramid = m[f"down_{i_level}_pyramid_down"](input_pyramid)
+                    h = input_pyramid = self._merge(input_pyramid, h)
                 hs.append(h)
 
         # --- middle -------------------------------------------------------------------
@@ -280,18 +327,31 @@ class NCSNppBase(nn.Module):
                 h = res(f"up_{i_level}_block{i_block}", torch.cat([h, hs.pop()], dim=1))
             if h.shape[2] in self.attn_resolutions:
                 h = self._attn(f"up_{i_level}_attn", h)
-            if self.output_skip:
-                pyramid_h = m[f"up_{i_level}_pyramid_conv"](m[f"up_{i_level}_pyramid_norm"](h))
+            if self.progressive != "none":
+                if self.progressive == "output_skip" or i_level == num_resolutions - 1:
+                    pyramid_h = m[f"up_{i_level}_pyramid_conv"](m[f"up_{i_level}_pyramid_norm"](h))
                 if i_level == num_resolutions - 1:
                     pyramid = pyramid_h
-                else:
-                    pyramid = ufd.upsample_2d(pyramid.contiguous(memory_format=CL),
-                                              self.fir_kernel, factor=2)
+                elif self.progressive == "output_skip":
+                    pyramid = pyramid.contiguous(memory_format=CL)
+                    if self.fir:
+                        pyramid = ufd.upsample_2d(pyramid, self.fir_kernel, factor=2)
+                    else:
+                        pyramid = ufd.naive_upsample_2d(pyramid, factor=2)
                     pyramid = pyramid + pyramid_h
+                else:  # residual
+                    pyramid = m[f"up_{i_level}_pyramid_up"](pyramid)
+                    h = pyramid = self._merge(pyramid, h)
             if i_level != 0:
-                h = res(f"up_{i_level}_upres", h)
+                if ddpm:
+                    h = m[f"up_{i_level}_upsample"](h)
+                else:
+                    h = res(f"up_{i_level}_upres", h)
         assert not hs
-        h = pyramid if self.output_skip else self.out_conv(self.out_norm(h))
+        if self.progressive == "output_skip":
+            h = pyramid
+        else:
+            h = self.out_conv(self.out_norm(h))
 
         # --- output scaling + complex packing -----------------------------------------
         h = h.float()

@@ -1,13 +1,14 @@
 """Where the time of one score-network evaluation, or of one train step, goes
 on the card.
 
-    python -m sgmse_tpu_torch.nfe_profile [--backbone ncsnpp_48k] [--out DIR]
-    python -m sgmse_tpu_torch.nfe_profile --train [--out DIR]
+    python -m sgmse_tpu_torch.nfe_profile [--backbone ncsnpp_48k|dcunet] [--out DIR]
+    python -m sgmse_tpu_torch.nfe_profile --train [--backbone dcunet] [--out DIR]
 
-Builds a full-width NCSN++ (seeded weights, bfloat16 compute, channels_last)
-and evaluates it on a (4, 1, F, 256) input (four 2.04-s utterances; F = 256
-for the flagship ``ncsnpp``, 768 for ``ncsnpp_48k``), as one step of the
-sampler does:
+Builds a full-width NCSN++ (seeded weights, bfloat16 compute, channels_last),
+or with ``--backbone dcunet`` DilDCUNet-v2 as the JAX training CLI builds it
+at n_fft 512 (``DCUNET``), and evaluates it on a (4, 1, F, 256) input (four
+2.04-s utterances; F = 256 for the flagship ``ncsnpp``, 768 for
+``ncsnpp_48k``, 257 for DCUNet), as one step of the sampler does:
 
 - wall time per evaluation: CUDA events around windows of 20 back-to-back
   evaluations (no synchronisation inside a window, as in the sampler's loop),
@@ -18,10 +19,12 @@ sampler does:
 
 The trace inflates host time, so the idle share of the traced span is an upper
 bound; the busy time against the untraced wall time gives the other reading.
+For DCUNet it adds the byte bound of its block epilogues
+(``dcunet_epilogue_bound``), the candidate for a fused kernel.
 Prints one JSON line; writes the trace to ``DIR/nfe_trace.json``.
 
-With ``--train`` the unit is one train step of the full-width flagship at the
-JAX training defaults (B=8 2.04-s crops, or ``--batch``; float32, Adam + EMA,
+With ``--train`` the unit is one train step of the backbone (the flagship at
+full width, or DCUNet as above) at the JAX training defaults (B=8 2.04-s crops, or ``--batch``; float32, Adam + EMA,
 seeded weights): CUDA events around windows of ``TRAIN_REPS`` steps
 (steps/s, samples/s), the peak device memory, and a trace of
 ``TRAIN_TRACED`` steps (``DIR/train_trace.json``) read the same way.
@@ -38,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .kernel_times import BINS
+from .kernel_times import BINS, PEAK_BYTES_PER_S
 
 BATCH, FRAMES = 4, 256  # the main path's batch of 2.04-s utterances
 REPS = 20               # evaluations per timed window
@@ -51,12 +54,19 @@ KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("K2 group_norm_act", ("gn_act_kernel",)),
     ("K2b group_norm_act_bwd", ("gn_bwd_",)),
     ("K1 upfirdn2d", ("upfirdn2d",)),
-    ("convolution (cuDNN)", ("fprop", "nhwcAddPadding", "cudnn")),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "nhwcAddPadding", "cudnn", "xmma",
+                             "implicit_gemm")),
     ("matmul", ("nvjet", "gemm")),
     ("dtype casts", ("copy_kernel",)),
     ("concat", ("CatArray",)),
+    ("reductions", ("reduce_kernel",)),
     ("elementwise", ("elementwise",)),
 )
+# DilDCUNet-v2 as the JAX training CLI builds it at n_fft 512 (hop 128, 257 frequency
+# bins; the CLI's one global time-embedding layer and leaky_relu, bN norms).
+DCUNET = dict(n_fft=512, hop_length=128, dcunet_temb_layers_global=1,
+              dcunet_activation="leaky_relu")
+DCUNET_BINS = 257
 
 
 def kind_of(name: str) -> str:
@@ -137,7 +147,66 @@ def _card() -> str:
     return card.splitlines()[0] if card else torch.cuda.get_device_name(0)
 
 
-def train_step_profile(model, out_dir, batch: int, seed: int = 0) -> dict:
+def dcunet_epilogue_bound(model, x, y, t) -> dict:
+    """The byte bound of DCUNet's block epilogues (the K7 candidate: the
+    complex recombination of a block's two real convolutions, the
+    time-embedding add, the norm in eval mode and the activation) at one
+    evaluation of ``model`` (a DCUNet ScoreModel) on (x, y, t): each block
+    must read its convolution's float32 output (two values per complex
+    output element, the stacked [re; im] of 2B rows) once and write the
+    activation once in the compute dtype. Shapes come from forward hooks, so
+    it runs on any device."""
+    blocks = [m for name, m in model.dnn.named_children() if name[:7] in ("encoder", "decoder")]
+    out_bytes = torch.empty((), dtype=model.dnn.compute_dtype or torch.float32).element_size()
+    sizes = []
+    hooks = [b.register_forward_hook(lambda m, args, out: sizes.append(out.numel()))
+             for b in blocks]
+    try:
+        with torch.inference_mode():
+            model(x, y, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    n_bytes = sum(n * (2 * 4 + out_bytes) for n in sizes)
+    return dict(blocks=len(sizes), elements=sum(sizes), bytes=n_bytes,
+                bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3)
+
+
+def evaluation_profile(model, x, y, t, out_dir, trace_name: str = "nfe_trace.json") -> dict:
+    """Wall ms per evaluation of ``model`` (a ScoreModel on the card) at
+    (x, y, t) in windows of ``REPS``, and the device breakdown of a trace of
+    ``TRACED`` evaluations, written to ``out_dir/trace_name``."""
+    with torch.inference_mode():
+        for _ in range(3):
+            model(x, y, t)
+        times = []
+        for _ in range(3):  # windows of back-to-back evaluations, as the sampler runs them
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPS):
+                model(x, y, t)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / REPS)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(TRACED):
+                model(x, y, t)
+            torch.cuda.synchronize()
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / trace_name
+    prof.export_chrome_trace(str(trace))
+    result = dict(card=_card(), backbone=model.backbone, precision=model.dnn.precision,
+                  batch=x.shape[0], bins=x.shape[2], frames=x.shape[3],
+                  wall_ms=statistics.median(times), wall_ms_windows=times,
+                  **breakdown(json.loads(trace.read_text())["traceEvents"], TRACED))
+    result["idle_share_untraced"] = 1.0 - result["busy_ms"] / result["wall_ms"]
+    return result
+
+
+def train_step_profile(model, out_dir, batch: int, seed: int = 0,
+                       trace_name: str = "train_trace.json") -> dict:
     """Steps/s, samples/s, peak memory and the device breakdown of train steps
     of ``model`` (a ScoreModel on the card, with its own loss) on a seeded
     batch of ``batch`` crops of ``model.spec.target_len`` samples."""
@@ -170,7 +239,7 @@ def train_step_profile(model, out_dir, batch: int, seed: int = 0) -> dict:
         torch.cuda.synchronize()
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    trace = out / "train_trace.json"
+    trace = out / trace_name
     prof.export_chrome_trace(str(trace))
     wall = statistics.median(times)
     result = dict(card=_card(), batch=batch, samples=shape[1],
@@ -185,9 +254,9 @@ def train_step_profile(model, out_dir, batch: int, seed: int = 0) -> dict:
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--backbone", choices=sorted(BINS), default="ncsnpp")
+    parser.add_argument("--backbone", choices=sorted(BINS) + ["dcunet"], default="ncsnpp")
     parser.add_argument("--train", action="store_true",
-                        help="profile a flagship train step (float32) instead")
+                        help="profile a train step (float32) of the backbone instead")
     parser.add_argument("--batch", type=int, default=TRAIN_BATCH,
                         help="the train step's batch (with --train)")
     parser.add_argument("--out", type=str, default="chiprun_out")
@@ -197,46 +266,25 @@ def main(argv=None) -> dict:
     from .model import ScoreModel
 
     dev = torch.device("cuda", 0)
+    dcunet = args.backbone == "dcunet"
+    settings = DCUNET if dcunet else {"init_scale": 1.0}
     if args.train:
-        model = ScoreModel("ncsnpp", "ouve", init_scale=1.0).to(
+        model = ScoreModel(args.backbone, "ouve", **settings).to(
             dev, memory_format=torch.channels_last)
         result = train_step_profile(model, args.out, args.batch)
         print(json.dumps(result))
         return result
-    model = ScoreModel(args.backbone, "ouve", precision="bfloat16", init_scale=1.0)
+    model = ScoreModel(args.backbone, "ouve", precision="bfloat16", **settings)
     model.init_params(torch.Generator().manual_seed(0))
     model = model.to(dev, memory_format=torch.channels_last).eval()
     rng = np.random.default_rng(0)
-    shape = (BATCH, 1, BINS[args.backbone], FRAMES)
+    shape = (BATCH, 1, DCUNET_BINS if dcunet else BINS[args.backbone], FRAMES)
     x, y = (torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
                              .astype(np.complex64) * 0.3).to(dev) for _ in range(2))
     t = torch.full((BATCH,), 0.5, device=dev)
-
-    with torch.inference_mode():
-        for _ in range(3):
-            model(x, y, t)
-        times = []
-        for _ in range(3):  # windows of back-to-back evaluations, as the sampler runs them
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(REPS):
-                model(x, y, t)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / REPS)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(TRACED):
-                model(x, y, t)
-            torch.cuda.synchronize()
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    trace = out / "nfe_trace.json"
-    prof.export_chrome_trace(str(trace))
-    result = dict(card=_card(), backbone=args.backbone, batch=BATCH, bins=shape[2], frames=FRAMES,
-                  wall_ms=statistics.median(times), wall_ms_windows=times,
-                  **breakdown(json.loads(trace.read_text())["traceEvents"], TRACED))
-    result["idle_share_untraced"] = 1.0 - result["busy_ms"] / result["wall_ms"]
+    result = evaluation_profile(model, x, y, t, args.out)
+    if dcunet:
+        result["epilogue_bound"] = dcunet_epilogue_bound(model, x, y, t)
     print(json.dumps(result))
     return result
 

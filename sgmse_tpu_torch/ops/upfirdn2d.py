@@ -29,6 +29,12 @@ upfirdn2d (StyleGAN2's ``Upfirdn2dBackward``): the flipped FIR, ``up`` and
 + 1, which gives back exactly H rows (:func:`adjoint_args`). The backward
 calls the same dispatcher, so on the card it is one more kernel launch (one
 pair launch for a pair) and on the CPU the plain version.
+
+FIR + convolution (K6 of the port: :func:`upsample_conv_2d`,
+:func:`conv_downsample_2d`, the JAX package's ``sgmse_tpu/ops/upfirdn2d.py:175-224``)
+splits as the JAX package splits it: the convolution on cuDNN, the FIR pass
+as one :func:`upfirdn2d` at up = down = 1, which is K1 on the card and, with
+its adjoint, differentiable as every other call.
 """
 from __future__ import annotations
 
@@ -272,6 +278,42 @@ def downsample_2d_pair(x0: torch.Tensor, x1: torch.Tensor, k: Kernel = None, fac
     """:func:`downsample_2d` of two tensors of the same shape, one kernel launch."""
     k, kw = _downsample_args(k, factor, gain)
     return upfirdn2d_pair(x0, x1, k, **kw)
+
+
+def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k: Kernel = None, factor: int = 2,
+                     gain: float = 1.0):
+    """Zero-stuff upsample -> conv(w) -> FIR (JAX ``upsample_conv_2d``); w is
+    OIHW (C_out, C_in, kh, kw), square.
+
+    The JAX package correlates ``w`` with the zero-stuffed input under full
+    padding; ``F.conv_transpose2d`` at stride ``factor`` computes that same
+    sum with the flipped kernel, so it takes ``w`` flipped and permuted to
+    (C_in, C_out, kh, kw). It runs on cuDNN; the FIR pass that follows is
+    :func:`upfirdn2d` at up = down = 1 (K1 on the card)."""
+    assert isinstance(factor, int) and factor >= 1
+    conv_h, conv_w = w.shape[2:]
+    assert conv_h == conv_w
+    k = setup_kernel([1.0] * factor if k is None else k) * (gain * (factor**2))
+    p = (k.shape[0] - factor) - (conv_w - 1)
+    wt = torch.flip(w, [2, 3]).transpose(0, 1)
+    y = F.conv_transpose2d(x, wt.to(x.dtype), stride=factor)
+    return upfirdn2d(y.contiguous(memory_format=torch.channels_last), k,
+                     pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k: Kernel = None, factor: int = 2,
+                       gain: float = 1.0):
+    """FIR -> conv(w) with stride ``factor`` (JAX ``conv_downsample_2d``); w is
+    OIHW, square. The FIR pass is :func:`upfirdn2d` at up = down = 1 (K1 on
+    the card), the strided convolution cuDNN's."""
+    assert isinstance(factor, int) and factor >= 1
+    conv_h, conv_w = w.shape[2:]
+    assert conv_h == conv_w
+    k = setup_kernel([1.0] * factor if k is None else k) * gain
+    p = (k.shape[0] - factor) + (conv_w - 1)
+    x = upfirdn2d(x.contiguous(memory_format=torch.channels_last), k,
+                  pad=((p + 1) // 2, p // 2))
+    return F.conv2d(x, w.to(x.dtype), stride=factor)
 
 
 def naive_upsample_2d(x: torch.Tensor, factor: int = 2):

@@ -26,7 +26,8 @@ split and, with ``--num_eval_files`` > 0, PESQ / SI-SDR / ESTOI of that many
 enhanced valid files (``utils.inference.evaluate_model``). Checkpoints
 (``checkpoint.py``) go to ``{log_dir}/{logger version}/``: ``last``,
 ``step_<n>``, ``best_pesq``, ``best_si_sdr``; ``--ckpt DIR`` resumes from one
-(step, weights, EMA and ``num_updates``; Adam starts afresh, as in JAX).
+(step, weights, EMA, ``num_updates`` and the model state, DCUNet's BatchNorm
+statistics; Adam starts afresh, as in JAX).
 
 Float32 convolutions follow PyTorch's cuDNN default (TF32 allowed); with
 TF32 off, cuDNN's heuristics choose FFT convolutions for some layers, which
@@ -63,8 +64,12 @@ from .utils.loggers import Logger, make_logger
 class TrainState:
     """What a train step reads and updates. ``params`` are the model's own
     parameters (``model.dnn.named_parameters()``), ``ema_params`` detached
-    copies of them; ``acc_grads`` and ``mini_step`` hold optax.MultiSteps'
-    running mean of the gradients when ``accumulate_grad_batches`` > 1."""
+    copies of them; ``model_state`` the model's buffers
+    (``model.dnn.named_buffers()``: DCUNet's BatchNorm running statistics, the
+    JAX package's ``model_state``), which every train-mode forward updates in
+    place and the EMA does not cover; ``acc_grads`` and ``mini_step`` hold
+    optax.MultiSteps' running mean of the gradients when
+    ``accumulate_grad_batches`` > 1."""
     step: int
     params: Dict[str, torch.nn.Parameter]
     ema_params: Dict[str, torch.Tensor]
@@ -73,12 +78,17 @@ class TrainState:
     accumulate_grad_batches: int = 1
     acc_grads: Optional[Dict[str, torch.Tensor]] = None
     mini_step: int = 0
+    model_state: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     def tree(self) -> dict:
-        """The saved part of the state (as the JAX package saves it)."""
-        return {"step": self.step,
+        """The saved part of the state (as the JAX package saves it; the model
+        state only where the model has one)."""
+        tree = {"step": self.step,
                 "params": {k: p.detach() for k, p in self.params.items()},
                 "ema_params": self.ema_params, "num_updates": self.num_updates}
+        if self.model_state:
+            tree["model_state"] = {k: b.detach() for k, b in self.model_state.items()}
+        return tree
 
 
 def create_train_state(model: ScoreModel, generator: torch.Generator,
@@ -90,7 +100,8 @@ def create_train_state(model: ScoreModel, generator: torch.Generator,
                                  betas=(0.9, 0.999), eps=1e-8)
     return TrainState(step=0, params=params,
                       ema_params={k: p.detach().clone() for k, p in params.items()},
-                      optimizer=optimizer, accumulate_grad_batches=accumulate_grad_batches)
+                      optimizer=optimizer, accumulate_grad_batches=accumulate_grad_batches,
+                      model_state=dict(model.dnn.named_buffers()))
 
 
 def ema_update(ema_params: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
@@ -152,7 +163,8 @@ def _specs(model: ScoreModel, x_wav, y_wav):
 def train_step(model: ScoreModel, state: TrainState, x_wav, y_wav,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One train step on a waveform batch: spectrograms on the device, the loss
-    in ``train()`` mode, its gradients, Adam and the EMA. Returns the loss (a
+    in ``train()`` mode (which advances the model state, the BatchNorm
+    statistics, once), its gradients, Adam and the EMA. Returns the loss (a
     device scalar: reading it waits for the step)."""
     x, y = _specs(model, x_wav, y_wav)
     model.train()
@@ -175,7 +187,8 @@ def valid_step(model: ScoreModel, x_wav, y_wav,
 @contextlib.contextmanager
 def ema_weights(state: TrainState):
     """The EMA weights in the model for the duration, the trained ones after
-    (torch_ema's store / copy_to / restore)."""
+    (torch_ema's store / copy_to / restore). Parameters only: the model state
+    (BatchNorm statistics) stays the live one, as in the JAX package."""
     with torch.no_grad():
         stored = {n: p.detach().clone() for n, p in state.params.items()}
         for n, p in state.params.items():
@@ -220,7 +233,8 @@ class Trainer:
                                    self.accumulate_grad_batches)
         if ckpt_path is not None:
             restored, _ = load_checkpoint(ckpt_path)
-            model.dnn.load_state_dict(restored["params"])
+            model.dnn.load_state_dict({**restored["params"],
+                                       **restored.get("model_state", state.model_state)})
             with torch.no_grad():
                 for n, e in state.ema_params.items():
                     e.copy_(restored["ema_params"][n])
@@ -269,9 +283,11 @@ class Trainer:
         return state
 
     def validate(self, state: TrainState, valid_loader, generator=None) -> Dict[str, float]:
-        """Validation on the EMA weights: the sample-weighted mean loss over the
-        valid split, and the in-training evaluation on ``num_eval_files``."""
+        """Validation on the EMA weights with the live model state, in
+        ``eval()`` mode: the sample-weighted mean loss over the valid split,
+        and the in-training evaluation on ``num_eval_files``."""
         model = self.model
+        model.eval()
         with ema_weights(state):
             loss_acc, n_samples = None, 0
             for x_wav, y_wav in valid_loader:

@@ -1,6 +1,6 @@
 """The port's Lightning ``.ckpt`` <-> checkpoint converter
-(``sgmse_tpu_torch.convert``) for the NCSN++ family, against the JAX
-package's ``sgmse_tpu.convert``, on the CPU at small widths.
+(``sgmse_tpu_torch.convert``) for the NCSN++ family and DCUNet, against the
+JAX package's ``sgmse_tpu.convert``, on the CPU at small widths.
 
 The reference-layout weights come from a JAX initialisation through JAX's
 ``export_ncsnpp_state_dict``, whose key order ``tests/test_export.py`` holds
@@ -201,7 +201,65 @@ def test_reference_style_ckpt_imports(tmp_path):
 
 
 def test_other_families_are_refused(tmp_path):
-    torch.save({"state_dict": {}, "hyper_parameters": {"backbone": "dcunet"}},
+    torch.save({"state_dict": {}, "hyper_parameters": {"backbone": "unet"}},
                tmp_path / "d.ckpt")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="NCSN.. family and DCUNet"):
         convert.convert_lightning_checkpoint(tmp_path / "d.ckpt")
+
+
+DCUNET = dict(dcunet_architecture="DCUNet-10", n_fft=64, hop_length=16, num_frames=32,
+              dcunet_temb_layers_local=2)
+
+
+def test_dcunet_ckpt_round_trip(tmp_path):
+    """The DCUNet half: a reference .ckpt made by JAX's exporter from a JAX
+    initialisation (running statistics set to seeded values) imports through
+    ``python -m sgmse_tpu_torch.convert`` to what ``convert.params_from_jax``
+    makes of the same trees, the statistics in ``model_state``; it exports back
+    equal to JAX's export, key for key and bit for bit (``num_batches_tracked``
+    and the EMA shadows included), and the port directory survives the trip."""
+    jmodel = JaxScoreModel("dcunet", "ouve", **DCUNET)
+    x0 = np.zeros((1, 1, 33, 32), np.complex64)
+    variables = jax.tree.map(np.asarray, jax.jit(jmodel.dnn.init)(
+        jax.random.key(5), x0, x0, np.full((1,), 0.5, np.float32)))
+    rng = np.random.default_rng(6)
+    stats = jax.tree.map(lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32),
+                         variables["batch_stats"])
+    params = variables["params"]
+    ema = jax.tree.map(lambda a: 0.5 * a, params)
+    ema["embed_gfp"]["W"] = params["embed_gfp"]["W"]
+    cfg = jmodel.config_dict()
+    jax_save_checkpoint(tmp_path / "jax", {
+        "step": np.asarray(99, np.int32), "params": params, "ema_params": ema,
+        "num_updates": np.asarray(99, np.int32), "model_state": {"batch_stats": stats}}, cfg)
+    reference = jax_convert.export_lightning_checkpoint(str(tmp_path / "jax"),
+                                                        str(tmp_path / "ref.ckpt"))
+    assert any(k.endswith("num_batches_tracked") for k in reference["state_dict"])
+
+    res = subprocess.run([sys.executable, "-m", "sgmse_tpu_torch.convert",
+                          str(tmp_path / "ref.ckpt"), str(tmp_path / "imported")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    state, config = checkpoint.load_checkpoint(tmp_path / "imported")
+    model = ScoreModel.from_config(config)
+    assert config == cfg and state["step"] == state["num_updates"] == 99
+    for key, tree in (("params", params), ("ema_params", ema)):
+        want = convert.params_from_jax(tree, "dcunet", stats, **model.dnn.config)
+        assert set(state[key]) | set(state["model_state"]) == set(want)
+        for name, value in {**state[key], **state["model_state"]}.items():
+            assert torch.equal(value, want[name]), (key, name)
+    loaded = checkpoint.load_score_model(tmp_path / "imported")
+    for name, value in loaded.dnn.state_dict().items():
+        assert torch.equal(value, {**state["ema_params"], **state["model_state"]}[name]), name
+
+    back = convert.export_lightning_checkpoint(tmp_path / "imported", tmp_path / "back.ckpt")
+    want_hp = dict(reference["hyper_parameters"])
+    want_hp.pop("image_size")  # JAX's exporter adds it to every backbone; DCUNet has none
+    assert back["hyper_parameters"] == want_hp
+    _assert_ckpts_equal(dict(back, hyper_parameters=reference["hyper_parameters"]), reference)
+    convert.convert_lightning_checkpoint(tmp_path / "back.ckpt", tmp_path / "again")
+    again, config2 = checkpoint.load_checkpoint(tmp_path / "again")
+    assert config2 == config
+    for key in ("params", "ema_params", "model_state"):
+        assert list(again[key]) == list(state[key])
+        assert all(torch.equal(again[key][n], state[key][n]) for n in state[key]), key

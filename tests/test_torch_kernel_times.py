@@ -37,6 +37,8 @@ def _close(got, ref, tol=1e-5):
     ((2, 16, 6, 10), 2, 1, (2, 1), UP_TAPS, 1),
     ((1, 8, 8, 8), 1, 2, (1, 1), DOWN_TAPS, 2),
     ((1, 8, 4, 6), 2, 1, (2, 1), UP_TAPS, 2),
+    ((2, 16, 13, 11), 1, 1, (1, 1), UP_TAPS, 1),  # K6 up's FIR pass
+    ((2, 16, 12, 10), 1, 1, (2, 2), DOWN_TAPS, 1),  # K6 down's
 ])
 def test_upfirdn2d_library_yardstick_matches_plain(sig):
     shape, up, down, pad, _, n = sig
@@ -116,23 +118,32 @@ def test_per_nfe_sums_each_signature_times_its_calls():
     assert up["library_ms"] == 0.3 and up["bound_by"] == "operations"
 
 
-@pytest.mark.parametrize("backbone,f_bins,per_forward,silu_split", [
-    ("ncsnpp", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4]),
-    ("ncsnpp_v2", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4]),
-    ("ncsnpp_48k", 768, {"upfirdn2d": 12, "group_norm_act": 100}, [99, 1]),
+@pytest.mark.parametrize("backbone,f_bins,per_forward,silu_split,pre_bias", [
+    ("ncsnpp", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4], 49),
+    ("ncsnpp_v2", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4], 49),
+    ("ncsnpp_48k", 768, {"upfirdn2d": 12, "group_norm_act": 100}, [99, 1], 49),
+    ("48k_residual", 768, {"upfirdn2d": 24, "group_norm_act": 101}, [100, 1], 49),
+    ("ncsnpp_variant", 256, {"upfirdn2d": 0, "group_norm_act": 85}, [0, 85], 37),
 ])
-def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward, silu_split):
+def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward, silu_split,
+                                                   pre_bias):
     """At full depth (narrow, short): the calls chip_smoke.py expects per network
     evaluation. The 48 kHz net has no pyramids (res-block pairs only) and keeps
-    the middle block's attention, whose norm has no SiLU."""
-    model = ScoreModel(backbone, "ouve", nf=8, init_scale=1.0).dnn.eval()
+    the middle block's attention, whose norm has no SiLU; with residual
+    pyramids (``kt.VARIANTS``) it adds 12 K6 FIR passes (K1 at up = down = 1,
+    6 down, 6 up) and the top pyramid norm. The ``ncsnpp`` variant (DDPM
+    blocks, no FIR, elu) calls no K1, and K2 always without SiLU."""
+    backbone, settings = kt.VARIANTS.get(backbone, (backbone, {}))
+    model = ScoreModel(backbone, "ouve", nf=8, init_scale=1.0, **settings).dnn.eval()
     x = torch.zeros(1, 1, f_bins, 64, dtype=torch.complex64)
     with torch.inference_mode(), kt.routed(calls=[], plain=True) as calls:
         model(x, x, torch.full((1,), 0.5))
     assert {k: sum(1 for n, _ in calls if n == k) for k in per_forward} == per_forward
     gn_sigs = [s for n, s in calls if n == "group_norm_act"]
     assert [sum(1 for s in gn_sigs if s[3] == flag) for flag in (True, False)] == silu_split
-    assert sum(1 for s in gn_sigs if s[4]) == 49
+    assert sum(1 for s in gn_sigs if s[4]) == pre_bias
+    k6 = [s for n, s in calls if n == "upfirdn2d" and s[1:3] == (1, 1)]
+    assert sorted({s[3] for s in k6}) == ([(1, 1), (2, 2)] if k6 else [])
 
 
 def test_train_signatures_are_the_flagship_training_calls():
@@ -166,7 +177,9 @@ def test_train_signatures_are_the_flagship_training_calls():
 
 
 @pytest.mark.parametrize("sig", [((2, 16, 8, 12), 2, 1, (2, 1), DOWN_TAPS, 2),  # adjoint of down
-                                 ((2, 16, 12, 8), 1, 2, (1, 1), UP_TAPS, 1)])  # adjoint of up
+                                 ((2, 16, 12, 8), 1, 2, (1, 1), UP_TAPS, 1),  # adjoint of up
+                                 ((2, 16, 12, 8), 1, 1, (2, 2), UP_TAPS, 1),  # of K6 up's FIR
+                                 ((2, 16, 12, 8), 1, 1, (1, 1), DOWN_TAPS, 1)])  # K6 down's
 def test_adjoint_library_yardstick_matches_plain(sig):
     """cuDNN's depthwise backward-input computes the K1 adjoint's function."""
     case = kt.make_case("upfirdn2d_adjoint", sig, torch.float32, CPU,

@@ -57,8 +57,8 @@ def test_constructor_routes_kwargs():
                        lr=1e-3, t_eps=0.05)
     assert model.sde.theta == 2.0 and model.dnn.nf == 16 and model.dnn.ch_mult == (1, 2)
     assert model.spec.n_fft == 126 and model.t_eps == 0.05
-    with pytest.raises(NotImplementedError):
-        ScoreModel("dcunet", "ouve")
+    with pytest.raises(NotImplementedError):  # mask bounding: unported, as in JAX
+        ScoreModel("dcunet", "ouve", dcunet_mask_bound="tanh")
 
 
 def test_enhance_entry_point_end_to_end(tmp_path):

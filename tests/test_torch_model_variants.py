@@ -167,7 +167,9 @@ def test_config_dict_round_trip_and_matches_jax(backbone, sde, config):
 
 
 def test_unported_models_raise():
+    """What is still unported raises: DCUNet's mask bounding (unported in the
+    JAX package too) and a backbone no package has."""
     with pytest.raises(NotImplementedError):
-        ScoreModel("dcunet", "ouve")
+        ScoreModel("dcunet", "ouve", dcunet_mask_bound="tanh")
     with pytest.raises(NotImplementedError):
-        ScoreModel("ncsnpp_v2", "sbve", resblock_type="ddpm")
+        ScoreModel("unet", "sbve")

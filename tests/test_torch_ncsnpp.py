@@ -96,11 +96,14 @@ def test_full_config_param_count():
     assert sum(p.numel() for p in NCSNpp().parameters()) == 65_590_822
 
 
-@pytest.mark.parametrize("kwargs", [dict(resblock_type="ddpm"), dict(progressive="residual"),
-                                    dict(progressive_combine="cat"), dict(fir=False),
-                                    dict(nonlinearity="relu")])
+@pytest.mark.parametrize("kwargs", [dict(resblock_type="vgg"), dict(progressive="pyramid"),
+                                    dict(progressive_combine="mul"),
+                                    dict(progressive_input="skip"),
+                                    dict(nonlinearity="gelu")])
 def test_unported_branches_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+    """Every branch of the JAX network is ported (tests/test_torch_ncsnpp_branches.py);
+    a value that neither package has still raises, at construction."""
+    with pytest.raises((ValueError, NotImplementedError)):
         NCSNpp(**{**SMALL, **kwargs})
 
 
@@ -155,7 +158,9 @@ def test_variant_forward_matches_jax(variant_params, name, precision, tol):
 
 def test_variant_defaults():
     v2, k48 = NCSNpp_v2(**SMALL), NCSNpp_48k(**VARIANTS["ncsnpp_48k"])
-    assert not v2.scale_by_sigma and v2.output_skip and v2.input_skip
-    assert k48.attn_resolutions == () and not k48.output_skip and not k48.input_skip
+    assert not v2.scale_by_sigma and (v2.progressive, v2.progressive_input) == (
+        "output_skip", "input_skip")
+    assert k48.attn_resolutions == () and (k48.progressive, k48.progressive_input) == (
+        "none", "none")
     assert k48.output_layer_before_sigma and hasattr(k48, "out_norm")
     assert not any("pyramid" in n or "combine" in n for n, _ in k48.named_modules())

@@ -54,3 +54,22 @@ def test_stream_overlap_counts_concurrent_streams_and_keyed_kernels():
     assert got["concurrent_share"] == pytest.approx(0.05 / 0.35)
     assert (got["keyed"], got["keyed_overlapped"]) == (2, 1)
     assert got["keyed_overlapped_share"] == pytest.approx(0.5)
+
+
+def test_dcunet_epilogue_bound_counts_each_block_output():
+    """The K7 candidate's byte bound: per block, two float32 values read and
+    one compute-dtype value written per element of its stacked output."""
+    import torch
+
+    from sgmse_tpu_torch.model import ScoreModel
+
+    model = ScoreModel("dcunet", "ouve", dcunet_architecture="DCUNet-10", n_fft=64,
+                       precision="bfloat16")
+    x = torch.zeros(2, 1, 33, 32, dtype=torch.complex64)
+    got = nfe_profile.dcunet_epilogue_bound(model.eval(), x, x, torch.full((2,), 0.5))
+    shapes = [(64, 17, 17), (128, 9, 9), (128, 5, 5), (128, 3, 3), (128, 2, 3),
+              (128, 3, 3), (128, 5, 5), (128, 9, 9), (64, 17, 17)]  # (B x C, H, W)
+    elements = sum(c * h * w for c, h, w in shapes)
+    assert got["blocks"] == 9 and got["elements"] == 2 * elements  # [re; im]: 2B rows
+    assert got["bytes"] == got["elements"] * (8 + 2)
+    assert got["bound_ms"] == got["bytes"] / 3.35e12 * 1e3

@@ -28,6 +28,7 @@ from sgmse_tpu_torch import checkpoint, convert, enhance, train
 from sgmse_tpu_torch.data.dataset import Specs, SpecsDataModule, WavLoader
 from sgmse_tpu_torch.data.wav import write_wav
 from sgmse_tpu_torch.model import ScoreModel
+from sgmse_tpu_torch.models import blocks
 from sgmse_tpu_torch.utils import metrics
 from sgmse_tpu_torch.utils.loggers import CSVLogger
 
@@ -303,10 +304,10 @@ def test_dropout_applies_in_train_mode_and_remat_replays_it():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     block = _small_model(dropout=0.5).dnn.down_0_block0
     h = torch.ones(2, 16, 8, 8)
-    kept = block._dropout(h, torch.Generator().manual_seed(0))
+    kept = blocks._dropout(h, block.dropout, block.training, torch.Generator().manual_seed(0))
     assert set(kept.unique().tolist()) == {0.0, 2.0}
     assert 0.3 < (kept == 0).float().mean() < 0.7
-    assert torch.equal(block.eval()._dropout(h, None), h)
+    assert torch.equal(blocks._dropout(h, block.dropout, block.eval().training, None), h)
 
 
 def test_metrics_equal_the_jax_package():
