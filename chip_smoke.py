@@ -113,12 +113,40 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    against f32 on one evaluation, the CbN variant on a short input and its
    batch coupling, ``nfe_profile`` of one B=4 bf16 evaluation
    (``chiprun_out/dcunet_nfe_trace.json``), ``train.main`` at B=8 on phase
-   9's dataset for 10 steps with validation, a train-step profile, a resume
+   9's dataset for 10 steps with validation, a train-step profile, the
+   device time of its bN statistics against three other ways of taking
+   them (``bn_statistics_cost``), a resume
    from ``last`` whose first step starts from the saved BatchNorm statistics
    bit for bit, ``enhance.main --ckpt``, and ``last`` through a Lightning
    ``.ckpt`` and back (weights, EMA and statistics bit for bit, identical
    wavs). ``python3 chip_smoke.py --only 12`` runs phases 1-2 and 12 alone
-   and prints no contract lines.
+   and prints no contract lines;
+13. data parallelism (``sgmse_tpu_torch.parallel``): (a) ``train.main`` at
+   the JAX defaults (B=8, f32) for 10 steps on phase 9's dataset alone and as
+   the one rank of an NCCL group (``--num_processes 1 --process_id 0
+   --coordinator_address 127.0.0.1:<free port>``: the data-parallel path,
+   whose one all-reduce of the gradients runs in a group of one too), cuDNN
+   deterministic in both: parameters and EMA bit for bit; then both steps'
+   profiles (``nfe_profile.train_step_profile``, the group's with its NCCL
+   kernels): the reduction's overhead in device busy ms and launches; (b) two ranks
+   on the one card, gloo on CUDA tensors (a test arrangement: NCCL refuses
+   two ranks on one device), 3 full-width flagship steps at B=4 each against
+   one process at B=8 on the same rows with the same draws: the ranks'
+   parameters bit for bit, the global losses within 1e-6 relative, each
+   leaf's first-step gradient within 1e-5 of its max|g|; (c) the same for
+   DCUNet bN (phase 12's DilDCUNet-v2), one step: the running statistics
+   within 1e-5 of their scale, the gradients within 1e-2 of each leaf's
+   max|g| and the loss within 1e-4 (``tests/test_torch_dcunet_train.py``'s
+   tolerances); (d) ``enhance`` through two worker processes on ``cuda:0``
+   (``parallel.pool``), B=4 and B=3, f32 and bf16, PC N=5 + ald on 1-s
+   inputs: each worker's rows bit for bit the one-device call on them with
+   the padded batch's draws, and in f32 within 1e-5 of max|out| of one
+   device on the whole zero-padded batch (in bf16 one device alone moves by
+   ~2e-2 between batches of 2 and 4, printed); the workers' launch counts
+   read from them; (e) ``serve.build_enhancer``
+   with ``--data_parallel`` on the same two workers: a burst of 8 requests,
+   each answer against ``model.enhance`` of its batch; then a line on what
+   one card cannot verify. ``--only 13`` runs phases 1-2 and 13.
 
 Each entry-point path is driven with the launch counters set to 0 just before
 it and read just after. The seconds of each phase are printed before the
@@ -227,6 +255,22 @@ FIRST_LAUNCH_THREADS = 8
 OVERLAP_B, OVERLAP_FORWARDS = 8, 2  # two streams, each this many B=8 forwards, profiled
 HOL_LONG_S, HOL_SHORT_S, HOL_GAP_S = 6.0, 1.0, 0.2  # a short request behind a long-path one
 SERVE_WATCHDOG_S = 900  # phase 11 fails, and the script exits, if it runs longer
+# Phase 13, data parallelism: 13a's train.main runs (steps of the flagship at B=8), 13b's
+# two-rank flagship steps (B=4 per rank) against one process at B=8, 13c's DCUNet bN step
+# likewise; the tolerances (the loss relative, each leaf's gradient relative to its max|g|,
+# DCUNet's statistics to their scale, after tests/test_torch_dcunet_train.py: its
+# DilDCUNet-v2 train-mode gradient 1e-2, its loss 1e-4); 13d/13e's short enhance through
+# two workers on the one card against one device (relative to max|out|), and their N.
+DP_TRAIN_STEPS, DP_TWO_RANK_STEPS = 10, 3
+DP_LOSS_RTOL, DP_GRAD_TOL = 1e-6, 1e-5
+DCUNET_DP_LOSS_RTOL, DCUNET_DP_GRAD_TOL, DCUNET_DP_STATS_TOL = 1e-4, 1e-2, 1e-5
+DP_TOL, DP_N, DP_SERVE_REQUESTS = 1e-5, 5, 8
+ONE_CARD_LIMITS = ("13: one card cannot verify NCCL across cards (13a is a world of one; 13b "
+                   "and 13c put two gloo ranks on one card, a test arrangement), the time of "
+                   "the gradient all-reduce over NVLink (it runs after the backward, with no "
+                   "overlap; a world of one moves no bytes between cards), "
+                   "or how the speed scales with N (13d and 13e share one card between two "
+                   "workers)")
 REPLACES = {
     "upfirdn2d": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
     "upfirdn2d_adjoint": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
@@ -1382,6 +1426,67 @@ def dcunet_model(dev, **overrides):
     return model.eval()
 
 
+def bn_statistics_cost(dev) -> dict:
+    """Device busy ms, forward and backward, of DCUNet bN's train-mode
+    statistics (``models/dcunet.py`` ``BatchStatistics``: float64 sums, a
+    one-pass float32 backward) against three other ways of taking them: the
+    earlier float32 means of x and x^2, Welford's float32 pass
+    (``torch.var_mean``) and autograd through the float64 sums, on the
+    inputs of every bN of one train-mode forward at the B=DCUNET_TRAIN_B
+    step's shapes, all profiled in this call."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt
+    from sgmse_tpu_torch import nfe_profile
+    from sgmse_tpu_torch.models.dcunet import BatchNormOnReIm, BatchStatistics
+
+    model = dcunet_model(dev).train()
+    inputs = []
+    hooks = [m.register_forward_hook(lambda _m, args, _out: inputs.append(args[0].detach()))
+             for m in model.dnn.modules() if isinstance(m, BatchNormOnReIm)]
+    x, y, t = kt.network_inputs(dev, nfe_profile.DCUNET_BINS, batch=DCUNET_TRAIN_B,
+                                frames=model.spec.num_frames)
+    with torch.no_grad():
+        model.dnn(x, y, t)
+    for h in hooks:
+        h.remove()
+    del model
+    dims = (1, 3, 4)
+
+    def moments(v, dtype):  # E[x^2] - E[x]^2 from sums in ``dtype``
+        sums = torch.stack([v.sum(dim=dims, dtype=dtype), (v * v).sum(dim=dims, dtype=dtype)])
+        mean, mean_sq = sums / (v.shape[1] * v.shape[3] * v.shape[4])
+        return mean.float(), torch.clamp_min(mean_sq - mean * mean, 0.0).float()
+
+    def welford(v):
+        var, mean = torch.var_mean(v, dim=dims, correction=0)
+        return mean, var
+
+    ways = {"module": BatchStatistics.apply, "float32_moments": lambda v: moments(v, torch.float32),
+            "welford": welford, "float64_sums_autograd": lambda v: moments(v, torch.float64)}
+
+    def statistics(way):
+        for a in inputs:
+            mean, var = way(a.view(2, a.shape[0] // 2, *a.shape[1:]).requires_grad_())
+            (mean.sum() + var.sum()).backward()
+
+    out = dict(layers=len(inputs))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, way in ways.items():
+        statistics(way)  # warm-up
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            statistics(way)
+            torch.cuda.synchronize()
+        trace = OUT_DIR / "bn_statistics_trace.json"
+        prof.export_chrome_trace(str(trace))
+        b = nfe_profile.breakdown(json.loads(trace.read_text())["traceEvents"], 1)
+        trace.unlink()
+        out[name] = dict(busy_ms=b["busy_ms"], launches=b["launches"])
+    del inputs
+    torch.cuda.empty_cache()
+    return out
+
+
 def dcunet_checks(tmp: Path, report, launches_by_path, dev):
     """Phase 12d: DCUNet. The entry point with ``--config`` (four 2.04-s wavs,
     PC N=30 + ald) in bfloat16 and float32; bf16 against f32 on one
@@ -1497,6 +1602,14 @@ def dcunet_checks(tmp: Path, report, launches_by_path, dev):
               f"(idle {profile['idle_share_untraced']:.1%} untraced), {profile['launches']:.0f} "
               f"launches, peak {profile['peak_gib']:.2f} GiB; kinds "
               + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in profile["kinds"].items()))
+        bn_cost = bn_statistics_cost(dev)
+        print(f"DCUNet bN train statistics of one B={DCUNET_TRAIN_B} step ({bn_cost['layers']} "
+              f"bN layers, forward and backward, device busy): the module's (float64 sums, "
+              f"one-pass backward) {bn_cost['module']['busy_ms']:.3f} ms, float32 E[x^2] - "
+              f"E[x]^2 (the earlier way) {bn_cost['float32_moments']['busy_ms']:.3f} ms, Welford "
+              f"{bn_cost['welford']['busy_ms']:.3f} ms, autograd through float64 sums "
+              f"{bn_cost['float64_sums_autograd']['busy_ms']:.3f} ms, against the step's "
+              f"{profile['busy_ms']:.1f} ms")
 
         last = Path(resumed["ckpt_dir"]) / "last"
         ckpt = convert.export_lightning_checkpoint(last, tmp / "dcunet.ckpt")
@@ -1532,8 +1645,384 @@ def dcunet_checks(tmp: Path, report, launches_by_path, dev):
         if any(launches_by_path[name].values()):
             raise AssertionError(f"{name}: DCUNet launched a hand-written kernel: "
                                  f"{launches_by_path[name]}")
-    report["dcunet_train"] = dict(train=run, resume=resumed, profile=profile,
+    report["dcunet_train"] = dict(train=run, resume=resumed, profile=profile, bn_cost=bn_cost,
                                   ckpt_tensors=len(ckpt["state_dict"]))
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def world_of_one(dev):
+    """A process group of this process alone, NCCL, for the duration."""
+    import torch
+    from sgmse_tpu_torch import parallel
+
+    parallel.init_process_group(f"tcp://127.0.0.1:{free_port()}", 1, 0, dev)
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for the duration: two runs of the same
+    steps then give the same bits (some weight-gradient algorithms add in an
+    order that varies from run to run)."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def dp_world_of_one(tmp: Path, report, launches_by_path, dev):
+    """Phase 13a: ``train.main`` at the JAX defaults (B=8, f32, PyTorch's
+    default TF32) for DP_TRAIN_STEPS steps on phase 9's dataset, once alone and
+    once as the one rank of an NCCL group (the bootstrap flags): the final
+    parameters, EMA and state bit for bit; then both steps' profiles, the
+    group's with its gradient all-reduce's NCCL kernels."""
+    import torch
+    from sgmse_tpu_torch import checkpoint, nfe_profile
+    from sgmse_tpu_torch import kernel_times as kt
+
+    root = tmp / "train_set"
+    if not root.exists():
+        write_train_set(root)
+    base = ["--base_dir", str(root), "--nolog", "--num_workers", "4", "--max_steps",
+            str(DP_TRAIN_STEPS), "--num_eval_files", "0", "--seed", str(SEED)]
+    valid_loss = NETS["ncsnpp"]["launches"]
+    runs = {}
+    with cudnn_tf32(), cudnn_deterministic():
+        runs["alone"] = train_run(base + ["--log_dir", str(tmp / "dp_alone")],
+                                  "13a train.main alone", DP_TRAIN_STEPS, valid_loss)
+        runs["group"] = train_run(base + ["--log_dir", str(tmp / "dp_nccl"), "--num_processes",
+                                        "1", "--process_id", "0", "--coordinator_address",
+                                        f"127.0.0.1:{free_port()}"],
+                                "13a train.main as a world of one (NCCL)", DP_TRAIN_STEPS,
+                                valid_loss)
+    trees = {k: checkpoint.load_checkpoint(Path(r["ckpt_dir"]) / "last")[0]
+             for k, r in runs.items()}
+    differ = [f"{part}/{n}" for part in ("params", "ema_params")
+              for n, t in trees["alone"][part].items()
+              if not torch.equal(t, trees["group"][part][n])]
+    same = runs["alone"]["state_sha256"] == runs["group"]["state_sha256"]
+    print(f"13a: {DP_TRAIN_STEPS} steps alone and as a world of one: losses "
+          f"{[round(v, 6) for _, v in runs['alone']['history']]} and "
+          f"{[round(v, 6) for _, v in runs['group']['history']]}; parameters and EMA bit for bit: "
+          f"{not differ and same} ({len(trees['alone']['params'])} leaves each)")
+    if differ or not same or runs["alone"]["history"] != runs["group"]["history"]:
+        raise AssertionError(f"13a: the world of one differs from the plain run: {differ[:5]}")
+    launches_by_path["dp_train"] = runs["group"]["launches"]
+    profiles = {}
+    with cudnn_tf32():
+        model = kt.full_model(dev).train()
+        profiles["alone"] = nfe_profile.train_step_profile(model, OUT_DIR, TRAIN_B,
+                                                           trace_name="dp_alone_trace.json")
+        with world_of_one(dev):
+            profiles["group"] = nfe_profile.train_step_profile(
+                model, OUT_DIR, TRAIN_B, trace_name="dp_trace.json")
+        del model
+    torch.cuda.empty_cache()
+    for k, p in profiles.items():
+        nccl = p["kinds"].get("NCCL collectives", dict(ms=0.0, launches=0.0))
+        print(f"13a step profile {k}, B={TRAIN_B}: {p['wall_ms']:.1f} ms wall, device busy "
+              f"{p['busy_ms']:.2f} ms, {p['launches']:.0f} launches, NCCL {nccl['ms']:.3f} ms "
+              f"in {nccl['launches']:.0f} kernels, peak {p['peak_gib']:.2f} GiB")
+    extra = profiles["group"]["busy_ms"] - profiles["alone"]["busy_ms"]
+    print(f"13a data-parallel overhead (world of one): {extra:+.3f} ms busy on "
+          f"{profiles['alone']['busy_ms']:.2f} ({extra / profiles['alone']['busy_ms']:+.2%}), "
+          f"{profiles['group']['launches'] - profiles['alone']['launches']:+.0f} launches")
+    report["dp_world_of_one"] = dict(runs={k: {key: r[key] for key in (
+        "history", "state_sha256", "launches", "fit_s")} for k, r in runs.items()},
+        profiles=profiles, busy_ms_overhead=extra)
+
+
+def _run_steps(model, x, y, steps, rank, world, ref_path=None):
+    """``steps`` train steps of ``model`` on this rank's rows of the global
+    waveform batch (x, y), the draws from one seeded generator: the losses,
+    the first step's gradients and model state (or, given ``ref_path``, each
+    leaf's error against the ones saved there, relative to its max|ref|, the
+    attention key biases against the largest gradient), the launches and a
+    digest of the final parameters."""
+    import hashlib
+
+    import torch
+    from sgmse_tpu_torch import train
+
+    dev = model.device
+    state = train.create_train_state(model, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b = x.shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    xr, yr = (torch.from_numpy(a[rows]).to(dev) for a in (x, y))
+    losses, first = [], None
+    reset_counters()
+    for step in range(steps):
+        loss, grads = train.compute_gradients(model, state, xr, yr, gen)
+        losses.append(loss.item())
+        train.apply_gradients(state, grads, model.ema_decay)  # averages grads over the ranks
+        if step == 0:
+            first = dict(grads={n: g.detach().cpu() for n, g in grads.items()},
+                         stats={n: t.detach().cpu() for n, t in state.model_state.items()})
+    torch.cuda.synchronize()
+    launches = counters()
+    digest = hashlib.sha256()
+    for n, p in state.params.items():
+        digest.update(n.encode() + p.detach().cpu().numpy().tobytes())
+    out = dict(losses=losses, launches=launches, digest=digest.hexdigest())
+    if ref_path is None:
+        return out, first
+    ref = torch.load(ref_path)
+    largest = max(g.abs().max().item() for g in ref["grads"].values())
+
+    def rel(n, g):
+        err = (g - ref["grads"][n]).abs().max().item()
+        scale = largest if n.endswith("NIN_1.b") else ref["grads"][n].abs().max().item()
+        return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+    out["grad_err"] = {n: rel(n, g) for n, g in first["grads"].items()}
+    out["stats_err"] = {n: (t - ref["stats"][n]).abs().max().item() for n, t in
+                        first["stats"].items()}
+    return out, None
+
+
+def two_rank_entry(rank, world, init_method, kind, x, y, steps, ref_path):
+    """Phases 13b and 13c: one of two ranks on the one card, gloo on CUDA
+    tensors (a test arrangement: NCCL refuses two ranks on one device). The
+    model is built before the group starts, so that its construction reduces
+    nothing."""
+    import torch
+    from sgmse_tpu_torch import kernels, parallel
+
+    torch.backends.cudnn.allow_tf32 = False  # as the one-process run in the parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.enabled = False  # see two_ranks
+    dev = torch.device("cuda", 0)
+    kernels.lib()
+    model = (full_flagship(dev) if kind == "ncsnpp" else dcunet_model(dev)).train()
+    parallel.init_process_group(init_method, world, rank, dev, backend="gloo")
+    return _run_steps(model, x, y, steps, rank, world, ref_path)[0]
+
+
+def full_flagship(dev):
+    """The flagship as ``train.main`` builds it (the DDPM init, init_scale 0,
+    drawn again by ``create_train_state``). kernel_times.full_model's init_scale
+    1 makes the first Adam step (about lr * sign(g) on every weight) multiply
+    the loss by ~14, so that the sign of the gradients that round near zero
+    moves the next loss by ~1e-6 (PERF.md §6)."""
+    import torch
+    from sgmse_tpu_torch.model import ScoreModel
+
+    return ScoreModel("ncsnpp", "ouve").to(dev, memory_format=torch.channels_last)
+
+
+def two_ranks(tmp: Path, report, dev, kind, steps):
+    """Phase 13b (``ncsnpp``) or 13c (``dcunet``): two gloo ranks at B=4 each
+    against one process at B=8 on the same rows with the same draws."""
+    import torch
+    from sgmse_tpu_torch.parallel import dist as pdist
+
+    rng = np.random.default_rng(SEED + 13)
+    shape = (2 * B, 255 * 128)  # 256 frames at hop 128
+    x = (0.3 * rng.standard_normal(shape)).astype(np.float32)
+    y = (x + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+    model = (full_flagship(dev) if kind == "ncsnpp" else dcunet_model(dev)).train()
+    # Both sides convolve without cuDNN (im2col and cuBLAS, f32): cuDNN picks its
+    # weight-gradient algorithm by batch size, and at B=4 against B=8 (TF32 off) the
+    # flagship's first convolution's gradient differed by 5.7e-5 of its max|g| in a first
+    # call, which says nothing about the ranks' reduction.
+    torch.backends.cudnn.enabled = False
+    try:
+        alone, first = _run_steps(model, x, y, steps, 0, 1)
+    finally:
+        torch.backends.cudnn.enabled = True
+    del model
+    torch.cuda.empty_cache()
+    ref_path = tmp / f"two_rank_ref_{kind}.pt"
+    torch.save(first, ref_path)
+    del first
+    t0 = time.time()
+    ranks = pdist.spawn(two_rank_entry, 2, (kind, x, y, steps, str(ref_path)), timeout=600)
+    global_losses = [float(np.mean(v)) for v in zip(*(r["losses"] for r in ranks))]
+    loss_err = max(abs(g - a) / abs(a) for g, a in zip(global_losses, alone["losses"]))
+    worst = sorted(((e, n) for r in ranks for n, e in r["grad_err"].items()), reverse=True)
+    grad_err = (worst[0][1], worst[0][0])
+    spread = {f"> {t:g}": sum(e > t for e, _ in worst) // 2 for t in (1e-3, 1e-4, 1e-5)}
+    print(f"  the worst leaves of the ranks' gradients against one process: "
+          f"{[(n, f'{e:.2e}') for e, n in worst[:8:2]]}; leaves of {len(worst) // 2} {spread}")
+    loss_tol, grad_tol = ((DP_LOSS_RTOL, DP_GRAD_TOL) if kind == "ncsnpp"
+                          else (DCUNET_DP_LOSS_RTOL, DCUNET_DP_GRAD_TOL))
+    what = "13b flagship" if kind == "ncsnpp" else "13c DCUNet bN"
+    stats = ""
+    if kind == "dcunet":  # each BatchNorm's (re or im) mean and var against their scale
+        scale = {}
+        for n, t in torch.load(ref_path)["stats"].items():
+            norm = n.rsplit(".", 1)[0]
+            scale[norm] = max(scale.get(norm, 0.0), t.abs().max().item())
+        stats_err = max(e / scale[n.rsplit(".", 1)[0]]
+                        for r in ranks for n, e in r["stats_err"].items())
+        stats = (f"; running statistics {stats_err:.2e} of their scale (bound "
+                 f"{DCUNET_DP_STATS_TOL})")
+    print(f"{what}: two gloo ranks on one card, B={B} each, {steps} step(s), against one "
+          f"process at B={2 * B} ({time.time() - t0:.1f} s with the ranks' start): global "
+          f"losses {global_losses} vs {alone['losses']} (worst {loss_err:.2e}, bound {loss_tol}); "
+          f"worst first-step leaf gradient {grad_err[1]:.2e} ({grad_err[0]}; bound {grad_tol})"
+          f"{stats}; the ranks' parameters bit for bit: {ranks[0]['digest'] == ranks[1]['digest']}"
+          f"; launches per rank {ranks[0]['launches']}")
+    if (ranks[0]["digest"] != ranks[1]["digest"] or loss_err > loss_tol
+            or grad_err[1] > grad_tol or (kind == "dcunet" and stats_err > DCUNET_DP_STATS_TOL)):
+        raise AssertionError(f"{what}: two ranks differ from one process")
+    report[f"two_ranks_{kind}"] = dict(global_losses=global_losses, alone=alone["losses"],
+                                       loss_err=loss_err, grad_err=grad_err,
+                                       rank_launches=[r["launches"] for r in ranks])
+
+
+def data_parallel_enhance(report, launches_by_path, dev):
+    """Phase 13d: ``enhance`` through two workers on the one card
+    (``parallel.pool``, the device list ``["cuda:0", "cuda:0"]``), at B=4 and
+    B=3, f32 and bf16, PC N=DP_N + ald on 1-s inputs: each worker's rows
+    equal, bit for bit, the one-device call on those rows with the padded
+    batch's draws (``parallel.global_rows``); in f32 the output is within
+    DP_TOL of the one-device call on the whole zero-padded batch. In bf16 the
+    one device alone moves by ~2e-2 between a batch of 2 and one of 4 (its
+    kernels and cuDNN's algorithms differ with the batch; ten evaluations of
+    a random net amplify it), which the line prints beside the workers'. The
+    workers' launches are read from them."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt
+    from sgmse_tpu_torch.model import ScoreModel
+    from sgmse_tpu_torch.parallel import global_rows
+    from sgmse_tpu_torch.parallel.pool import DataParallelModel
+
+    weights = kt.full_model("cpu").dnn.state_dict()
+    wavs = np.stack([speech(1.0, 16000, SEED + 130 + i) for i in range(B)])
+    total = {k: 0 for k in KERNELS}
+    report["dp_enhance"] = {}
+
+    def seeded():
+        return torch.Generator(dev).manual_seed(SEED)
+
+    for precision in ("float32", "bfloat16"):
+        model = ScoreModel("ncsnpp", "ouve", precision=precision)
+        model.dnn.load_state_dict(weights)
+        t0 = time.time()
+        with DataParallelModel(model.eval(), ["cuda:0", "cuda:0"]) as dp:
+            started = time.time() - t0
+            model = model.to(dev, memory_format=torch.channels_last)
+            for batch in (B, B - 1):
+                y = wavs[:batch]
+                padded = np.concatenate([y, np.zeros((batch % 2, y.shape[1]), np.float32)])
+                dp.launch_counts(reset=True)
+                t1 = time.time()
+                out = dp.enhance(y, generator=seeded(), N=DP_N)
+                wall = time.time() - t1
+                launches = dp.launch_counts()
+                whole = model.enhance(padded, generator=seeded(), N=DP_N)
+                rows = len(padded) // 2
+                blocks = []
+                for i in range(2):
+                    with global_rows(i, 2):
+                        blocks.append(model.enhance(padded[i * rows:(i + 1) * rows],
+                                                    generator=seeded(), N=DP_N))
+                blocks = np.concatenate(blocks)
+                scale = np.abs(whole).max()
+                rel = float(np.abs(out - whole[:batch]).max() / scale)
+                rel_blocks = float(np.abs(blocks - whole).max() / scale)
+                split = float(np.abs(out - blocks[:batch]).max())
+                expected = expect(NETS["ncsnpp"]["launches"], 2 * 2 * DP_N)
+                print(f"13d enhance --data_parallel, {precision}, B={batch}: two workers on one "
+                      f"card against one device on each worker's rows: max |diff| {split} "
+                      f"(bit for bit); against one device on the zero-padded batch {rel:.2e} "
+                      f"of max|out| (bound {DP_TOL} in float32), where one device on the "
+                      f"two halves differs by {rel_blocks:.2e}; {wall:.2f} s; the workers' "
+                      f"launches {launches}; workers started in {started:.1f} s")
+                if (split != 0 or (precision == "float32" and rel > DP_TOL)
+                        or launches != expected or not np.isfinite(out).all()):
+                    raise AssertionError(f"13d {precision} B={batch}: split {split}, rel {rel}, "
+                                         f"launches {launches} (expected {expected})")
+                total = add(total, launches)
+                report["dp_enhance"][f"{precision}_B{batch}"] = dict(
+                    rel_err=rel, rel_err_one_device_halves=rel_blocks, split_max_abs=split,
+                    wall_s=wall, launches=launches)
+        del model
+        torch.cuda.empty_cache()
+    launches_by_path["dp_enhance"] = total
+
+
+def data_parallel_serve(tmp: Path, report, launches_by_path, dev):
+    """Phase 13e: ``serve.build_enhancer(--data_parallel)`` with two workers on
+    the one card: a burst of DP_SERVE_REQUESTS 1-s requests, one batch, every
+    answer against ``model.enhance`` of that batch with its generator."""
+    import torch
+    from sgmse_tpu_torch import convert, serve
+    from sgmse_tpu_torch import kernel_times as kt
+
+    model = kt.full_model(dev)
+    weights = tmp / "dp_weights.npz"
+    convert.save_npz(weights, convert.jax_tree_from_state_dict(model.dnn.state_dict()))
+    flags = ["--weights", str(weights), "--batch_size", str(DP_SERVE_REQUESTS), "--max_delay_ms",
+             "2000", "--N", str(DP_N), "--data_parallel"]
+    built, enh, sr = serve.build_enhancer(serve.build_parser().parse_args(flags),
+                                          device=["cuda:0", "cuda:0"])
+    with enh:
+        bucket = enh.bucket_for(16000)
+        enh.warmup([bucket], [DP_SERVE_REQUESTS])
+        wavs = [speech(1.0, sr, SEED + 140 + i) for i in range(DP_SERVE_REQUESTS)]
+        built.launch_counts(reset=True)
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=600) for f in [enh.submit(w) for w in wavs]]
+        wall = time.perf_counter() - t0
+        launches = built.launch_counts()
+        stats = enh.stats()
+        n = enh.samples_for_bucket(bucket)
+        batch = np.zeros((DP_SERVE_REQUESTS, n), np.float32)
+        for i, w in enumerate(wavs):
+            batch[i, :len(w)] = w
+        ref = model.eval().enhance(batch, generator=enh.generator(0), sde=built.sde,
+                                   pad_mode=enh.pad_mode, **enh.sampler_kwargs)
+    rel = max(float(np.abs(o - r[:len(o)]).max() / np.abs(r).max()) for o, r in zip(outs, ref))
+    single = report.get("serve_burst", {}).get(4)
+    print(f"13e serve --data_parallel: {DP_SERVE_REQUESTS} requests of 1 s in {stats['batches']} "
+          f"batch(es), {DP_SERVE_REQUESTS / wall:.3f} requests/s (f32, N={DP_N}; phase 11's "
+          f"single-card burst: "
+          + (f"{single['requests_per_s']:.3f} requests/s, bf16, N=30" if single else
+             "not measured in this run")
+          + f"; a check of function, not a scaling figure); every answer against the direct "
+          f"call: {rel:.2e} of max|out| (bound {DP_TOL}); the workers' launches {launches}")
+    expected = expect(NETS["ncsnpp"]["launches"], 2 * 2 * DP_N * stats["batches"])
+    if rel > DP_TOL or stats["batches"] != 1 or stats["errors"] or launches != expected:
+        raise AssertionError(f"13e: rel {rel}, stats {stats}, launches {launches} "
+                             f"(expected {expected})")
+    launches_by_path["dp_serve"] = launches
+    report["dp_serve"] = dict(rel_err=rel, requests_per_s=DP_SERVE_REQUESTS / wall,
+                              launches=launches)
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_13(tmp: Path, report, launches_by_path, dev, lap):
+    """Phase 13: data parallelism (13a-e), then what one card cannot verify."""
+    dp_world_of_one(tmp, report, launches_by_path, dev)
+    lap("13a data-parallel world of one")
+    two_ranks(tmp, report, dev, "ncsnpp", DP_TWO_RANK_STEPS)
+    lap("13b two ranks")
+    two_ranks(tmp, report, dev, "dcunet", 1)
+    lap("13c DCUNet two ranks")
+    data_parallel_enhance(report, launches_by_path, dev)
+    lap("13d enhance --data_parallel")
+    data_parallel_serve(tmp, report, launches_by_path, dev)
+    lap("13e serve --data_parallel")
+    print(ONE_CARD_LIMITS)
 
 
 def phase_12(tmp: Path, report, launches_by_path, dev, lap):
@@ -1551,7 +2040,7 @@ def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
-    parser.add_argument("--only", choices=("12",), default=None,
+    parser.add_argument("--only", choices=("12", "13"), default=None,
                         help="run phases 1-2 and this phase only, and print no contract lines "
                              "(a quicker check of one phase)")
     only = parser.parse_args(argv).only
@@ -1591,10 +2080,11 @@ def main(argv=None):
     launches_by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        if only == "12":
-            phase_12(tmp, report, launches_by_path, dev, lap)
+        if only is not None:
+            {"12": phase_12, "13": phase_13}[only](tmp, report, launches_by_path, dev, lap)
             print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
-            (OUT_DIR / "chip_smoke_12.json").write_text(json.dumps(report, indent=1, default=str))
+            (OUT_DIR / f"chip_smoke_{only}.json").write_text(json.dumps(report, indent=1,
+                                                                        default=str))
             return
         model, rows = network_checks("ncsnpp", dev, report)
         model_48k, rows_48k = network_checks("ncsnpp_48k", dev, report)
@@ -1736,6 +2226,9 @@ def main(argv=None):
         # --- 12. the remaining NCSN++ branches and DCUNet ------------------------------
         residual_rows, residual_train_rows = phase_12(tmp, report, launches_by_path, dev, lap)
         rows += residual_rows
+
+        # --- 13. data parallelism ---------------------------------------------------------
+        phase_13(tmp, report, launches_by_path, dev, lap)
 
     summary = summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path)
     report["kernels"], report["phase_s"] = summary, phases

@@ -24,6 +24,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from .. import parallel
 from . import native
 from .wav import read_wav
 
@@ -105,11 +106,29 @@ class WavLoader:
     with ``default_rng(seed + e)`` and draws one crop seed per batch from it,
     in the main thread, so batches do not depend on thread scheduling. Each
     batch yielded adds one to ``native.SERVED`` under the path that loaded it.
+
+    With ``process_count`` > 1 (data-parallel training, one process per rank)
+    process ``process_index`` loads every ``process_count``-th index of the
+    epoch's permutation, which every process draws alike from the same seed;
+    the permutation is first padded by wrap-around to a multiple of the
+    process count, so every shard has the same length, as in the JAX package
+    (a rank with one batch more than its peers would wait for them forever in
+    the gradient all-reduce).
+
+    With ``rows=(index, count)`` (``--devices N``) every batch is loaded whole
+    and only its ``index``-th block of ``batch_size / count`` rows is yielded:
+    the rank's part of a batch that one process would load, as the JAX trainer
+    splits one process's batch over its devices.
     """
 
     def __init__(self, dataset: Specs, batch_size: int, shuffle: bool,
                  seed: int = 0, num_workers: int = 4, drop_last: Optional[bool] = None,
-                 use_native: bool = True):
+                 use_native: bool = True, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None,
+                 rows: Optional[Tuple[int, int]] = None):
+        if rows is not None and batch_size % rows[1]:
+            raise ValueError(f"a batch of {batch_size} does not split into {rows[1]} equal "
+                             "blocks of rows")
         self.dataset = dataset
         self.use_native = use_native
         self.batch_size = batch_size
@@ -117,10 +136,15 @@ class WavLoader:
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.drop_last = shuffle if drop_last is None else drop_last
+        self.process_index = process_index
+        self.process_count = process_count
+        self.rows = rows
         self._epoch = 0
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        if self.process_count is not None and self.process_count > 1:
+            n = -(-n // self.process_count)  # per-process shard size (padded)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -130,6 +154,11 @@ class WavLoader:
         rng = np.random.default_rng(self.seed + self._epoch)
         self._epoch += 1
         order = rng.permutation(n) if self.shuffle else np.arange(n)
+        if self.process_count is not None and self.process_count > 1:
+            world = self.process_count
+            per = -(-len(order) // world)
+            padded = np.concatenate([order, order[: per * world - len(order)]])
+            order = padded[self.process_index::world]
         if self.drop_last:
             order = order[: (len(order) // self.batch_size) * self.batch_size]
         batches = [order[i:i + self.batch_size]
@@ -179,6 +208,9 @@ class WavLoader:
                     pass
                 x, y, path = fut.result()
                 native.SERVED[path] += 1
+                if self.rows is not None:
+                    b = self.batch_size // self.rows[1]
+                    x, y = (a[self.rows[0] * b:(self.rows[0] + 1) * b] for a in (x, y))
                 yield x, y
 
 
@@ -225,7 +257,7 @@ class SpecsDataModule:
                  window: str = "hann", num_workers: int = 4, dummy: bool = False,
                  spec_factor: float = 0.15, spec_abs_exponent: float = 0.5,
                  normalize: str = "noisy", transform_type: str = "exponent",
-                 seed: int = 0, **ignored_kwargs):
+                 seed: int = 0, split_batch: bool = False, **ignored_kwargs):
         self.base_dir = base_dir
         self.format = format
         self.batch_size = batch_size
@@ -240,6 +272,7 @@ class SpecsDataModule:
         self.normalize = normalize
         self.transform_type = transform_type
         self.seed = seed
+        self.split_batch = split_batch
         self.train_set = self.valid_set = self.test_set = None
 
     def setup(self, stage: Optional[str] = None):
@@ -252,8 +285,18 @@ class SpecsDataModule:
             self.test_set = Specs(self.base_dir, "test", shuffle_spec=False, **common)
 
     def train_dataloader(self) -> WavLoader:
-        return WavLoader(self.train_set, self.batch_size, shuffle=True,
-                         seed=self.seed, num_workers=self.num_workers)
+        """The training loader of this rank of the process group
+        (``parallel``). With ``split_batch`` (``--devices N``) ``batch_size``
+        is the global batch, of which each rank keeps its block of rows, as
+        the JAX trainer splits one process's batch over its devices; otherwise
+        each rank (a process of a multi-host job) loads its shard of the epoch
+        and ``batch_size`` is its batch, as each JAX process loads its own."""
+        common = dict(shuffle=True, seed=self.seed, num_workers=self.num_workers)
+        if self.split_batch:
+            return WavLoader(self.train_set, self.batch_size,
+                             rows=(parallel.rank(), parallel.world()), **common)
+        return WavLoader(self.train_set, self.batch_size, process_index=parallel.rank(),
+                         process_count=parallel.world(), **common)
 
     def val_dataloader(self) -> WavLoader:
         return WavLoader(self.valid_set, self.batch_size, shuffle=False,

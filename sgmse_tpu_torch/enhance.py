@@ -22,11 +22,15 @@ N steps whatever ``--N`` says.
 ``--batch_size`` groups utterances whose padded frame counts match and
 enhances each group in one batched sampler run. ``--chunk_seconds`` enhances
 each utterance alone, in overlapping chunks of that length
-(``ScoreModel.enhance_long``).
+(``ScoreModel.enhance_long``). ``--data_parallel`` splits each batch by rows
+over every visible GPU, one worker process each (``parallel.pool``; as the JAX
+CLI shards it over its mesh): the output equals one GPU's on the batch
+zero-padded to a multiple of the GPU count.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -43,6 +47,7 @@ from . import checkpoint, convert
 from .data.wav import read_wav, resample, write_wav
 from .model import ScoreModel
 from .models.ncsnpp import NCSNpp
+from .parallel import pool
 from .utils.inference import target_sr_and_pad
 
 
@@ -78,6 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Enhance each file alone in overlapping chunks of this many "
                              "seconds (overlap-add crossfade, bounded memory)")
     parser.add_argument("--seed", type=int, default=0, help="Sampling RNG seed")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="Split each utterance batch by rows over every local GPU, one "
+                             "worker process each (use with --batch_size >= the GPU count)")
     parser.add_argument("--timeit", action="store_true",
                         help="Print the run's real-time factor and audio-s/wall-s; every "
                              "input shape runs once, one step long, before the clock starts")
@@ -164,17 +172,41 @@ def warm_up(model: ScoreModel, shapes, generator, sampler_kwargs) -> int:
     return nfe
 
 
+def load(args, device, entry: str = "sgmse_tpu_torch.enhance"):
+    """(model, device) of the parsed flags on ``device``: the model, or with
+    ``--data_parallel`` a ``parallel.pool.DataParallelModel`` over every GPU
+    (``device`` may then be a list of devices, a Python-API hook for tests),
+    which the caller closes. Raises without a card unless ``device`` names one."""
+    if isinstance(device, (list, tuple)) and not args.data_parallel:
+        raise ValueError("a list of devices is for --data_parallel")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{entry} runs on a CUDA device, and "
+                               "torch.cuda.is_available() is false")
+        device = "cuda"
+    model = build_model(args)
+    if not args.data_parallel:
+        device = torch.device(device)
+        return model.to(device, memory_format=torch.channels_last).eval(), device
+    devices = pool.local_devices(device)
+    if args.batch_size < len(devices):
+        print(f"--data_parallel: batch_size {args.batch_size} < {len(devices)} devices: "
+              "batches are zero-padded up to the device count; raise --batch_size for "
+              "full use", file=sys.stderr)
+    model = pool.DataParallelModel(model.eval(), devices)
+    return model, model.device
+
+
 def main(argv=None, device=None) -> dict:
     """Enhance every wav of ``--test_dir``. Runs on the card; ``device="cpu"``
     (not a command-line flag) runs the plain versions on the CPU, for tests."""
     args = build_parser().parse_args(argv)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("sgmse_tpu_torch.enhance runs on a CUDA device, and "
-                               "torch.cuda.is_available() is false")
-        device = "cuda"
-    device = torch.device(device)
-    model = build_model(args).to(device, memory_format=torch.channels_last).eval()
+    model, device = load(args, device)
+    with model if args.data_parallel else contextlib.nullcontext():
+        return _run(args, model, device)
+
+
+def _run(args, model, device) -> dict:
     target_sr, pad_mode = target_sr_and_pad(model.backbone)
 
     items = _load_items(args.test_dir, target_sr)
@@ -216,6 +248,8 @@ def main(argv=None, device=None) -> dict:
     stats = dict(files=len(items), audio_s=total_audio_s, wall_s=wall, nfe=nfe_total,
                  warmup_nfe=warm_nfe, all_finite=all_finite, device=str(device),
                  backbone=model.backbone, sde=model.sde_name, sample_rate=target_sr)
+    if args.data_parallel:
+        stats["devices"] = [str(d) for d in model.devices]
     if args.timeit and total_audio_s > 0:
         stats["rtf"] = wall / total_audio_s
         stats["audio_s_per_wall_s"] = total_audio_s / wall

@@ -69,6 +69,7 @@ SEED = 0
 REPS = 25
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bfloat16 on the tensor cores (K6's convolution)
 K2_LIBRARY_NOTE = ("F.group_norm: the same function on the calls without SiLU and "
                    "pre-bias; on the others it computes GN only (no one-call "
                    "equivalent with SiLU or the pre-bias)")
@@ -81,10 +82,13 @@ K1_ADJOINT_LIBRARY_NOTE = ("depthwise cuDNN backward-input (aten.convolution_bac
 K6_LIBRARY_NOTE = ("depthwise cuDNN at stride 1: F.conv2d(padding p, groups C) with the "
                    "flipped FIR for a K6 FIR pass (up = down = 1, pads (p, p)); its "
                    "backward-input for the adjoint")
+K6_FOLDED_NOTE = ("one cuDNN call with the FIR folded into the weights: the 6x6 kernel "
+                  "w * k at stride 2, padding 2 (F.conv_transpose2d up, F.conv2d down)")
 K2B_LIBRARY_NOTE = ("aten.native_group_norm_backward on NCHW copies: GroupNorm only (no "
                     "SiLU, no pre-bias), dx, dgamma and dbeta")
 LIBRARY_NOTES = {"upfirdn2d": K1_LIBRARY_NOTE, "upfirdn2d_adjoint": K1_ADJOINT_LIBRARY_NOTE,
-                 "group_norm_act": K2_LIBRARY_NOTE, "group_norm_act_bwd": K2B_LIBRARY_NOTE}
+                 "group_norm_act": K2_LIBRARY_NOTE, "group_norm_act_bwd": K2B_LIBRARY_NOTE,
+                 "k6_fir_conv": K6_FOLDED_NOTE}
 
 
 def ops_modules():
@@ -340,7 +344,8 @@ def graph_ms(fn, reps: int = REPS) -> float:
 
 def time_case(case) -> dict:
     """Kernel, plain and library ms of one case, with its bound."""
-    row = {k: case[k] for k in ("name", "sig", "dtype", "bytes", "ops", "bound_ms", "bound_by")}
+    row = {k: case[k] for k in ("name", "sig", "dtype", "bytes", "ops", "bound_ms", "bound_by",
+                                "ops_ms") if k in case}
     row["ms"] = graph_ms(case["kernel"])
     row["plain_ms"] = graph_ms(case["plain"])
     row["library_ms"] = graph_ms(case["library"]) if "library" in case else None
@@ -383,7 +388,8 @@ def per_nfe(rows) -> dict:
         mine = [r for r in rows if r["name"] == name]
         total = lambda key: sum(r[key] * r["per_forward"] for r in mine)
         bytes_ms = total("bytes") / PEAK_BYTES_PER_S * 1e3
-        ops_ms = total("ops") / PEAK_F32_FLOPS * 1e3
+        ops_ms = (total("ops_ms") if name == "k6_fir_conv"  # its convolution on tensor cores
+                  else total("ops") / PEAK_F32_FLOPS * 1e3)
         out[name] = dict(
             launches_per_nfe=sum(r["per_forward"] for r in mine),
             ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
@@ -394,6 +400,93 @@ def per_nfe(rows) -> dict:
                 "; " + K6_LIBRARY_NOTE if any("up=1 down=1" in r.get("sig", "") for r in mine)
                 else ""))
     return out
+
+
+def record_k6_calls(dev, backbone="ncsnpp_48k", **settings):
+    """The K6 (FIR + conv) calls of one full-width evaluation of a ``VARIANTS``
+    net: ``("up" | "down", x shape, w shape, FIR taps, factor)``, in first-call
+    order."""
+    _, ufd = ops_modules()
+    model = full_model(dev, backbone=backbone, **settings)
+    x, y, t = network_inputs(dev, BINS[backbone])
+    calls, orig = [], {"up": ufd.upsample_conv_2d, "down": ufd.conv_downsample_2d}
+
+    def recorder(kind):
+        def call(x, w, k=None, factor=2, gain=1.0):
+            calls.append((kind, tuple(x.shape), tuple(w.shape), tuple(k), factor))
+            return orig[kind](x, w, k=k, factor=factor, gain=gain)
+        return call
+
+    ufd.upsample_conv_2d, ufd.conv_downsample_2d = recorder("up"), recorder("down")
+    try:
+        with torch.inference_mode(), routed(plain=True):
+            model.dnn(x, y, t)
+    finally:
+        ufd.upsample_conv_2d, ufd.conv_downsample_2d = orig["up"], orig["down"]
+    return calls
+
+
+def _full_conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The full 2-D convolution of one (kh, kw) kernel ``a`` with each of the
+    (N, 3, 3) kernels ``b``: (N, kh + 2, kw + 2)."""
+    out = F.conv2d(F.pad(a[None, None], (2, 2, 2, 2)), torch.flip(b, [1, 2])[:, None])
+    return out[0]
+
+
+def make_k6_case(kind, x_shape, w_shape, taps, factor, dtype, dev, gen):
+    """K6 at one call signature: ``kernel`` (cuDNN's convolution and the K1
+    pass, as the network runs it), ``plain`` (the same with the plain FIR),
+    ``library`` (one cuDNN call with the FIR folded into the weights: a 6x6
+    kernel at stride 2, padding 2) with ``library_ref``; bytes and
+    operations of the function."""
+    _, ufd = ops_modules()
+    x = torch.randn(x_shape, generator=gen, device=dev).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = 0.05 * torch.randn(w_shape, generator=gen, device=dev)
+    fn = ufd.upsample_conv_2d if kind == "up" else ufd.conv_downsample_2d
+    # the FIR pass's taps as the composition scales them, on the device (no host copy
+    # inside a CUDA graph's capture)
+    k_dev = torch.from_numpy(np.asarray(ufd.setup_kernel(taps), np.float32)
+                             * (factor**2 if kind == "up" else 1)).to(dev)
+
+    def plain():  # the composition with the plain FIR pass
+        orig = ufd.upfirdn2d
+        ufd.upfirdn2d = lambda y, _k, up=1, down=1, pad=(0, 0), **_: ufd.upfirdn2d_plain(
+            y, k_dev, up, down, pad)
+        try:
+            return fn(x, w, k=taps, factor=factor)
+        finally:
+            ufd.upfirdn2d = orig
+
+    k2 = torch.from_numpy(np.asarray(ufd.setup_kernel(taps), np.float32)).to(dev)
+    o, i = w_shape[:2]
+    if kind == "up":  # conv_transpose2d(w flipped) then the FIR: one transposed conv
+        wt = torch.flip(w, [2, 3]).transpose(0, 1).reshape(i * o, *w_shape[2:])
+        folded = _full_conv(k2 * factor**2, wt).reshape(i, o, 6, 6).to(dtype)
+        library = lambda: F.conv_transpose2d(x, folded, stride=factor, padding=2)
+    else:  # the FIR (a correlation with the flipped taps) then the strided conv
+        folded = _full_conv(torch.flip(k2, [0, 1]), w.reshape(o * i, *w_shape[2:]))
+        folded = folded.reshape(o, i, 6, 6).to(dtype)
+        library = lambda: F.conv2d(x, folded, stride=factor, padding=2)
+    esize = torch.empty((), dtype=dtype).element_size()
+    y_shape = tuple(plain().shape)
+    b, c_in, h, wd = x_shape
+    if kind == "up":  # the transposed conv's MACs, then 16 taps per FIR output
+        conv_ops = 2 * b * c_in * h * wd * o * 9
+        fir_ops = 2 * 16 * int(np.prod(y_shape))
+    else:  # 16 taps per FIR output (input + 1 per side), then the strided conv's MACs
+        conv_ops = 2 * int(np.prod(y_shape)) * c_in * 9
+        fir_ops = 2 * 16 * b * c_in * (h + 1) * (wd + 1)
+    case = dict(name="k6_fir_conv", sig=f"{kind} x={x_shape} w={w_shape}", dtype=str(dtype)
+                .split(".")[-1], kernel=lambda: fn(x, w, k=taps, factor=factor), plain=plain,
+                library=library, library_ref=plain,
+                bytes=int((np.prod(x_shape) + np.prod(y_shape) + np.prod(w_shape)) * esize),
+                ops=conv_ops + fir_ops)
+    bytes_ms = case["bytes"] / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (conv_ops / PEAK_BF16_FLOPS + fir_ops / PEAK_F32_FLOPS) * 1e3
+    case["bound_ms"], case["ops_ms"] = max(bytes_ms, ops_ms), ops_ms
+    case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return case
 
 
 def card() -> str:
@@ -412,6 +505,10 @@ def main(argv=None) -> dict:
                         help="time the call signatures of this NCSN++ variant instead "
                              "(48k_residual: K1 at the K6 signatures; ncsnpp_variant: K2 "
                              "without SiLU)")
+    parser.add_argument("--k6", action="store_true",
+                        help="with --variant 48k_residual: time K6 (FIR + conv) itself at each "
+                             "of its call signatures, beside one cuDNN call with the FIR folded "
+                             "into the weights")
     parser.add_argument("--train", action="store_true",
                         help="time the calls of one flagship train step (float32), "
                              "forward and backward, per step")
@@ -425,7 +522,10 @@ def main(argv=None) -> dict:
         raise RuntimeError("kernel_times runs on the card only")
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if args.train:
+    if args.k6:
+        backbone, settings = VARIANTS[args.variant or "48k_residual"]
+        counts, dtype = per_forward(record_k6_calls(dev, backbone, **settings)), torch.bfloat16
+    elif args.train:
         fwd, bwd = record_train_calls(full_model(dev), dev, args.batch)
         counts, dtype = per_forward(fwd + bwd), torch.float32
     else:
@@ -435,8 +535,17 @@ def main(argv=None) -> dict:
         counts, dtype = per_forward(calls), torch.bfloat16
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = [dict(time_case(make_case(*key, dtype, dev, gen)), per_forward=n)
-            for key, n in counts.items()]
+    rows = []
+    for key, n in counts.items():
+        case = (make_k6_case(*key, dtype, dev, gen) if args.k6
+                else make_case(*key, dtype, dev, gen))
+        if args.k6:  # the folded call computes the same function: hold it to the plain
+            ref, lib = case["library_ref"]().float(), case["library"]().float()
+            case["library_err"] = ((lib - ref).abs().max() / ref.abs().max()).item()
+            if not case["library_err"] <= 2.0**-6:  # a few bf16 roundings apart
+                raise AssertionError(f"{case['sig']}: folded K6 off by {case['library_err']}")
+        rows.append(dict(time_case(case), per_forward=n,
+                         **({"library_err": case["library_err"]} if args.k6 else {})))
     result = dict(card=card(), root=args.root or ".", backbone=args.backbone,
                   variant=args.variant, shapes=rows)
     if args.train:

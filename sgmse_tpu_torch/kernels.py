@@ -14,13 +14,15 @@ exception.
 
 Several host threads may launch kernels at once (the serving path's executor
 threads do, each on its own stream; ``ctypes`` releases the GIL for the call):
-:func:`lib` builds and loads under a lock, so a process builds once, each
+:func:`lib` builds and loads under a lock, so a process builds once (and
+:func:`build` under a file lock, so processes build one at a time), each
 kernel opts into its shared memory once under a C++11 static initialiser, and
 :func:`count_launch` keeps the launch counters exact.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -63,11 +65,23 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile and link the kernels unless this exact build exists. Returns the
     library's path. The compiler's output (``-Xptxas -v``: registers, shared
-    memory and spills per kernel) is kept in ``build.log`` beside it."""
+    memory and spills per kernel) is kept in ``build.log`` beside it. Processes
+    build one at a time (an exclusive ``flock`` on ``build.lock``): the
+    data-parallel ranks and inference workers each load the library on first
+    use, and the first one builds it while the others wait, then load it."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return so if so.exists() else _build(so)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build(so: Path) -> Path:
     nvcc = nvcc_path()
     cus, _ = _sources()
     t0 = time.time()

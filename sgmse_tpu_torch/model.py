@@ -43,6 +43,7 @@ import torch.nn as nn
 from . import sampling
 from .dsp import SpecTransform, pad_spec
 from .models import BackboneRegistry
+from .parallel.rows import draw
 from .sdes import SDERegistry, crandn
 from .utils.pesq_loss import PesqLoss
 
@@ -268,6 +269,12 @@ class ScoreModel(nn.Module):
             return loss_tf + self.l1_weight * loss_l1
         raise ValueError(f"Invalid loss type: {self.loss_type}")
 
+    def draw_t(self, batch: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
+        """The diffusion times t ~ U(t_eps, T) of a batch (under
+        ``parallel.global_rows``, this process's rows of the global draw)."""
+        return (draw(torch.rand, (batch,), generator=generator, device=device)
+                * (self.sde.T - self.t_eps) + self.t_eps)
+
     def step_loss(self, x, y, generator: Optional[torch.Generator] = None,
                   t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None):
         """One training or validation loss on the spectrogram batch (x, y),
@@ -275,8 +282,7 @@ class ScoreModel(nn.Module):
         ``generator`` (or the given ``t`` and ``z``), x_t = mean + std * z.
         Dropout follows the module's mode."""
         if t is None:
-            t = (torch.rand(x.shape[0], generator=generator, device=x.device)
-                 * (self.sde.T - self.t_eps) + self.t_eps)
+            t = self.draw_t(x.shape[0], generator, x.device)
         mean, std = self.sde.marginal_prob(x, y, t)
         if z is None:
             z = crandn(x.shape, generator, x.device)
@@ -378,17 +384,18 @@ class ScoreModel(nn.Module):
 
     def enhance_long(self, y_wav, chunk_seconds: float = 20.0, overlap: float = 0.1,
                      generator: Optional[torch.Generator] = None, timeit: bool = False,
-                     **kwargs):
+                     enhance=None, **kwargs):
         """Enhance one long utterance ``(L,)`` in chunks of ``chunk_seconds``
         (at ``self.sr``) overlapping by ``overlap``, and overlap-add them with a
         linear crossfade (none at the start of the first chunk and at the end
         of the last). Every chunk has the same length, so one padded shape.
         The chunks draw their noise from ``generator`` in order. ``kwargs`` go
-        to :meth:`enhance`. Returns the waveform, or ``(x_hat, nfe, rtf)`` with
-        ``timeit``."""
-        device = self.device
+        to :meth:`enhance`, or to ``enhance`` where one is given (the
+        data-parallel pool's, ``parallel.pool``). Returns the waveform, or
+        ``(x_hat, nfe, rtf)`` with ``timeit``."""
+        enhance = self.enhance if enhance is None else enhance
         if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = torch.Generator(device=self.device).manual_seed(0)
         y_wav = np.asarray(y_wav, dtype=np.float32)
         if y_wav.ndim != 1:
             raise ValueError("enhance_long takes one utterance (L,)")
@@ -396,7 +403,7 @@ class ScoreModel(nn.Module):
         chunk = int(chunk_seconds * self.sr)
         hop = int(chunk * (1.0 - overlap))
         if y_wav.shape[-1] <= chunk:
-            out, nfe, _ = self.enhance(y_wav, generator=generator, timeit=True, **kwargs)
+            out, nfe, _ = enhance(y_wav, generator=generator, timeit=True, **kwargs)
         else:
             n_chunks = 1 + math.ceil(max(y_wav.shape[-1] - chunk, 0) / hop)
             total = (n_chunks - 1) * hop + chunk
@@ -411,7 +418,7 @@ class ScoreModel(nn.Module):
             nfe = 0
             for i in range(n_chunks):
                 seg = y_pad[i * hop: i * hop + chunk]
-                x_hat, n, _ = self.enhance(seg, generator=generator, timeit=True, **kwargs)
+                x_hat, n, _ = enhance(seg, generator=generator, timeit=True, **kwargs)
                 nfe += n
                 w = win.copy()
                 if i == 0 and ramp > 0:

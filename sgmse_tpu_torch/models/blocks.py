@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..ops import group_norm as gn
 from ..ops import upfirdn2d as ufd
+from ..parallel.rows import draw
 
 CL = torch.channels_last
 
@@ -372,11 +373,13 @@ class Downsample(nn.Module):
 
 def _dropout(h, rate: float, training: bool, generator: Optional[torch.Generator]):
     """flax ``nn.Dropout`` in ``train()`` mode: keep with probability 1 - rate,
-    scale by its inverse; the mask from ``generator``."""
+    scale by its inverse; the mask from ``generator`` (under
+    ``parallel.global_rows``, this process's rows of the global batch's mask)."""
     if not training or rate == 0.0:
         return h
     keep = 1.0 - rate
-    mask = torch.empty(h.shape, device=h.device).bernoulli_(keep, generator=generator)
+    mask = draw(lambda shape: torch.empty(shape, device=h.device).bernoulli_(
+        keep, generator=generator), h.shape)
     return torch.where(mask.bool(), h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
 
 

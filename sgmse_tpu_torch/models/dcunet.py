@@ -21,7 +21,8 @@ Norms, as in the JAX package:
 
 - ``bN``: BatchNorm on the real and on the imaginary part (flax
   ``nn.BatchNorm``, momentum 0.9, eps 1e-5). In ``train()`` mode it
-  normalises with the batch statistics (flax's E[x^2] - E[x]^2 variance)
+  normalises with the batch's mean and biased variance (flax's E[x^2] -
+  E[x]^2, from sums accumulated in float64: :class:`BatchStatistics`)
   and updates its ``mean``/``var`` buffers once per forward, ``ra <- 0.9 ra + 0.1 batch``, storing the biased
   batch variance (``nn.BatchNorm2d`` would store the unbiased one); in
   ``eval()`` mode it uses the running statistics.
@@ -29,6 +30,15 @@ Norms, as in the JAX package:
   statistics in both modes (the reference builds it with
   ``track_running_stats=False``): a row's output depends on the other rows
   of its batch, padded rows and frames included.
+
+Under data-parallel training (a process group of more than one rank,
+``parallel``) the ``train()``-mode statistics of both norms are the global
+batch's, as the JAX package's are when its batch is sharded over a mesh:
+the per-channel statistics are all-reduced with autograd
+(``torch.distributed.nn.functional.all_reduce``), so the gradient sees the
+global statistics too, and every rank's running statistics move alike.
+``eval()`` mode reduces nothing (validation and inference run each rank's
+own batches).
 
 Time embedding: Gaussian Fourier (``gfp``, W fixed: never trained) or
 DiffWave-style (``ds``), real or complex, then ``dcunet_temb_layers_global``
@@ -53,7 +63,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.distributed as dist
+from torch.distributed.nn.functional import all_reduce
 
+from .. import parallel
 from .blocks import CL, _uniform_
 from .ncsnpp import compute_dtype_for
 from .registry import BackboneRegistry
@@ -310,6 +323,45 @@ class BatchNorm(nn.Module):
         self.var.fill_(1.0)
 
 
+class BatchStatistics(torch.autograd.Function):
+    """(mean, biased variance) over the dims (1, 3, 4) of a (2, B, C, H, W)
+    tensor, per (re|im, channel), float32, and in a process group over every
+    rank's rows too (equal counts). The forward takes flax's E[x^2] - E[x]^2
+    from sums in float64, all-reduced over the ranks: rounded to float32 they
+    do not depend on how the rows are split, where float32 sums (or Welford's
+    float32 pass) do, by ~1e-7, which DilDCUNet-v2's ill-conditioned
+    train-mode gradient turns into 1.1-1.4e-2 of a leaf's max|g| between one
+    batch of 8 and two ranks of 4. The backward is float32, one pass: dv =
+    (g_mean + 2 (v - mean) g_var) / n, after an all-reduce of the upstream
+    (g_mean, g_var) (the loss is the sum of the ranks' losses). Autograd
+    through the float64 sums wrote several full-size tensors and took about
+    twice this one's device time (NVIDIA H100 80GB HBM3, 700 W; PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        dims = (1, 3, 4)
+        sums = torch.stack([v.sum(dims, dtype=torch.float64),
+                            (v * v).sum(dims, dtype=torch.float64)])
+        n = v.shape[1] * v.shape[3] * v.shape[4] * parallel.world()
+        if parallel.world() > 1:
+            dist.all_reduce(sums)
+        mean, mean_sq = sums / n
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+        mean, var = mean.float(), var.float()
+        ctx.save_for_backward(v, mean)
+        ctx.n = n
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        v, mean = ctx.saved_tensors
+        g = torch.stack([g_mean, g_var]) / ctx.n
+        if parallel.world() > 1:
+            dist.all_reduce(g)
+        at = lambda t: t[:, None, :, None, None]  # noqa: E731 - (2, C) against v
+        return torch.addcmul(at(g[0]), v - at(mean), at(2.0 * g[1]))
+
+
 class BatchNormOnReIm(nn.Module):
     """``bN``: a BatchNorm on the real part (``re``) and one on the imaginary
     part (``im``). See the module docstring for the running statistics."""
@@ -323,9 +375,7 @@ class BatchNormOnReIm(nn.Module):
         v = x.view(2, x.shape[0] // 2, *x.shape[1:])  # (re|im, B, C, H, W)
         parts = (self.re, self.im)
         if self.training:
-            # flax's statistics: E[x^2] - E[x]^2, clipped at 0
-            mean = v.mean(dim=(1, 3, 4))
-            var = torch.clamp_min((v * v).mean(dim=(1, 3, 4)) - mean * mean, 0.0)
+            mean, var = BatchStatistics.apply(v)
             with torch.no_grad():
                 for i, bn in enumerate(parts):
                     bn.mean.copy_(self.momentum * bn.mean + (1 - self.momentum) * mean[i])
@@ -367,11 +417,21 @@ class ComplexBatchNorm(nn.Module):
         v = x.view(2, x.shape[0] // 2, *x.shape[1:])
         dims = (0, 2, 3)
         xr, xi = v[0], v[1]
-        xr = xr - xr.mean(dims, keepdim=True)
-        xi = xi - xi.mean(dims, keepdim=True)
-        vrr = (xr * xr).mean(dims, keepdim=True) + self.eps
-        vri = (xr * xi).mean(dims, keepdim=True)
-        vii = (xi * xi).mean(dims, keepdim=True) + self.eps
+        if self.training and parallel.world() > 1:  # over the global batch
+            n = xr.shape[0] * xr.shape[2] * xr.shape[3] * parallel.world()
+            m = all_reduce(torch.stack([xr.sum(dims, keepdim=True),
+                                        xi.sum(dims, keepdim=True)])) / n
+            xr, xi = xr - m[0], xi - m[1]
+            c = all_reduce(torch.stack([(xr * xr).sum(dims, keepdim=True),
+                                        (xr * xi).sum(dims, keepdim=True),
+                                        (xi * xi).sum(dims, keepdim=True)])) / n
+            vrr, vri, vii = c[0] + self.eps, c[1], c[2] + self.eps
+        else:
+            xr = xr - xr.mean(dims, keepdim=True)
+            xi = xi - xi.mean(dims, keepdim=True)
+            vrr = (xr * xr).mean(dims, keepdim=True) + self.eps
+            vri = (xr * xi).mean(dims, keepdim=True)
+            vii = (xi * xi).mean(dims, keepdim=True) + self.eps
         tau = vrr + vii
         delta = vrr * vii - vri * vri
         s = torch.sqrt(delta)

@@ -51,6 +51,7 @@ TRAIN_REPS = 3          # train steps per timed window
 TRAIN_TRACED = 2        # profiled train steps
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
+    ("NCCL collectives", ("nccl",)),
     ("K2 group_norm_act", ("gn_act_kernel",)),
     ("K2b group_norm_act_bwd", ("gn_bwd_",)),
     ("K1 upfirdn2d", ("upfirdn2d",)),
@@ -209,7 +210,9 @@ def train_step_profile(model, out_dir, batch: int, seed: int = 0,
                        trace_name: str = "train_trace.json") -> dict:
     """Steps/s, samples/s, peak memory and the device breakdown of train steps
     of ``model`` (a ScoreModel on the card, with its own loss) on a seeded
-    batch of ``batch`` crops of ``model.spec.target_len`` samples."""
+    batch of ``batch`` crops of ``model.spec.target_len`` samples. In a process
+    group the steps average their gradients over the ranks, and the
+    all-reduce is the trace's ``NCCL collectives``."""
     from . import train
 
     dev = model.device

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .parallel.rows import draw
 from .utils.registry import Registry
 
 SDERegistry = Registry("SDE")
@@ -226,10 +227,12 @@ class SBVESDE(SDE):
 
 def crandn(shape, generator: Optional[torch.Generator] = None, device=None,
            dtype=torch.complex64) -> torch.Tensor:
-    """Standard complex normal: real and imaginary parts each ~ N(0, 1/2), so E|z|^2 = 1."""
+    """Standard complex normal: real and imaginary parts each ~ N(0, 1/2), so E|z|^2 = 1.
+    Batch-first: under ``parallel.global_rows`` it is this process's rows of the
+    global batch's draw."""
     if generator is not None and device is None:
         device = generator.device
     scale = 1.0 / math.sqrt(2.0)
-    re = torch.randn(shape, generator=generator, device=device, dtype=torch.float32) * scale
-    im = torch.randn(shape, generator=generator, device=device, dtype=torch.float32) * scale
+    re = draw(torch.randn, shape, generator=generator, device=device, dtype=torch.float32) * scale
+    im = draw(torch.randn, shape, generator=generator, device=device, dtype=torch.float32) * scale
     return torch.complex(re, im).to(dtype)

@@ -1,4 +1,4 @@
-"""Serving on one GPU: dynamic batching of enhancement requests, and its HTTP
+"""Serving: dynamic batching of enhancement requests, and its HTTP
 entry point.
 
     python -m sgmse_tpu_torch.serve (--ckpt DIR | --weights W.npz [--config C.json]) \\
@@ -9,7 +9,10 @@ entry point.
 Counterpart of ``sgmse_tpu/serve.py`` (:class:`BatchingEnhancer`) and
 ``cli/serve.py`` (the HTTP front end). The model comes from ``--ckpt`` (a
 checkpoint of the port's training) or ``--weights`` with an optional
-``--config``, built by ``enhance.build_model``.
+``--config``, built by ``enhance.build_model``. ``--data_parallel`` splits
+every composed batch by rows over every visible GPU, one worker process each
+(``parallel.pool``), as ``cli/serve.py`` shards it over its mesh; the
+dispatcher, buckets, deadline and ``max_pending`` stay as they are.
 
 Concurrent callers submit waveforms of any length. One dispatcher thread
 groups them into batches by padded frame count (multiples of 64 frames, the
@@ -79,6 +82,7 @@ import torch
 from . import enhance
 from .data.wav import read_wav, resample, write_wav
 from .models.ncsnpp import NCSNpp
+from .parallel.pool import DataParallelModel
 from .utils.inference import target_sr_and_pad
 
 
@@ -134,7 +138,10 @@ class BatchingEnhancer:
     """Dynamic-batching front end over ``ScoreModel.enhance``.
 
     Args:
-        model: a ScoreModel holding its weights, on the device it serves from.
+        model: a ScoreModel holding its weights, on the device it serves from,
+            or a ``parallel.pool.DataParallelModel``, which splits each batch
+            by rows over its worker processes (``--data_parallel``); closing
+            the enhancer closes it.
         max_batch: largest batch per sampler run.
         max_delay_ms: longest time a request waits for batch-mates.
         max_seconds: longer requests run alone through ``enhance_long``.
@@ -288,6 +295,8 @@ class BatchingEnhancer:
             self._work.put(None)
         for w in self._workers:
             w.join()
+        if isinstance(self.model, DataParallelModel):
+            self.model.close()
 
     def __enter__(self):
         return self
@@ -443,29 +452,20 @@ def build_parser() -> argparse.ArgumentParser:
                         help="The minimum process time (0.03 by default)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="Serve from every local GPU (not ported yet: raises)")
+                        help="Split every served batch by rows over every local GPU, one "
+                             "worker process each")
     NCSNpp.add_argparse_args(parser)
     parser.set_defaults(precision=None)  # float32, or the checkpoint's / --config's
     return parser
 
 
-def _device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("sgmse_tpu_torch.serve runs on a CUDA device, and "
-                               "torch.cuda.is_available() is false")
-        device = "cuda"
-    return torch.device(device)
-
-
 def build_enhancer(args, device=None):
     """(model, BatchingEnhancer, target sample rate) of the parsed flags. Runs
-    on the card; ``device="cpu"`` is for tests."""
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel: serving from more than one device is "
-                                  "not ported yet (ROADMAP A13)")
-    device = _device(device)
-    model = enhance.build_model(args).to(device, memory_format=torch.channels_last).eval()
+    on the card; ``device="cpu"`` is for tests. With ``--data_parallel`` the
+    model is a ``parallel.pool.DataParallelModel`` over every GPU (``device``
+    may be a list, the pool's test hook), whose workers the enhancer's
+    ``close`` stops; each composed batch is split over them."""
+    model, _ = enhance.load(args, device, "sgmse_tpu_torch.serve")
     target_sr, pad_mode = target_sr_and_pad(model.backbone)
     sampler_type = args.sampler_type
     if model.sde_name == "sbve" and sampler_type == "pc":

@@ -33,16 +33,35 @@ Float32 convolutions follow PyTorch's cuDNN default (TF32 allowed); with
 TF32 off, cuDNN's heuristics choose FFT convolutions for some layers, which
 makes a float32 step several times slower (PERF.md).
 
+Data parallelism (``parallel``), as the JAX trainer shards its batch over a
+mesh: ``--devices N`` (``auto``: every visible GPU) starts N ranks on one
+host, one process per GPU; the JAX CLI's bootstrap flags
+(``--coordinator_address host:port --num_processes P --process_id p``) or
+``--distributed auto`` (torchrun's or SLURM's environment) make this process
+one rank of a group started elsewhere. Under ``--devices N``
+``--batch_size`` is the global batch, as in the JAX trainer, which splits one
+process's batch over its devices: each rank trains its block of batch_size /
+N rows (N must divide it). Under the bootstrap flags each rank is one JAX
+process: it loads its shard of every epoch and ``--batch_size`` is its
+batch. Each rank draws its rows of the global batch's t, z and dropout
+masks, takes its gradients with ``torch.autograd.grad``, and one all-reduce
+of all of them (NCCL on CUDA; gloo on the CPU) averages them over the ranks
+before each update; with accumulation, the running mean is averaged once per
+update. Rank 0 writes the logs and the checkpoints; the validation batches
+go round the ranks, each rank evaluates its share of the eval files, and one
+collective sums the metrics. With one device and no bootstrap flag the
+trainer runs alone, without a process group.
+
 ``main`` runs on the card and raises when ``torch.cuda.is_available()`` is
 false; ``main(argv, device="cpu")`` (not a command-line flag) runs the plain
-versions on the CPU, as the tests do. One device only: ``--devices`` above 1
-raises (data-parallel training is ROADMAP A13).
+versions on the CPU, as the tests do, and with ``--devices N`` N gloo ranks.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import sys
 import time
 from pathlib import Path
@@ -51,11 +70,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import parallel
 from .checkpoint import CheckpointPolicies, load_checkpoint
 from .data.dataset import SpecsDataModule
 from .model import ScoreModel
 from .models import BackboneRegistry
-from .sdes import SDERegistry
+from .parallel import dist as pdist
+from .sdes import SDERegistry, crandn
 from .utils.inference import evaluate_model, select_eval_files, shard_eval_files
 from .utils.loggers import Logger, make_logger
 
@@ -124,7 +145,11 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], ema_decay
     then the EMA. With accumulation (optax.MultiSteps), the running mean
     acc <- acc + (g - acc) / (m + 1) of the micro-steps' gradients is applied on
     every k-th call and the parameters stay as they are in between; the step,
-    ``num_updates`` and the EMA advance on every call."""
+    ``num_updates`` and the EMA advance on every call. In a process group the
+    gradients that an update applies (``grads``, or the running mean) are
+    first averaged over the ranks in place, in one all-reduce
+    (``parallel.dist.average_all_``): once per update, as the mean over the
+    ranks of each rank's mean is the mean of the global micro-batches."""
     k = state.accumulate_grad_batches
     with torch.no_grad():
         if k > 1:
@@ -136,6 +161,7 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], ema_decay
             state.mini_step += 1
             grads = state.acc_grads if state.mini_step == k else None
         if grads is not None:
+            pdist.average_all_(list(grads.values()))
             for n, p in state.params.items():
                 p.grad = grads.get(n)
             state.optimizer.step()
@@ -160,28 +186,57 @@ def _specs(model: ScoreModel, x_wav, y_wav):
     return model.spec.wav_to_spec(x)[:, None], model.spec.wav_to_spec(y)[:, None]
 
 
+def compute_gradients(model: ScoreModel, state: TrainState, x_wav, y_wav,
+                      generator: Optional[torch.Generator] = None):
+    """(loss, {name: gradient} of every trainable parameter) on a waveform
+    batch in ``train()`` mode, which advances the model state (the BatchNorm
+    statistics) once, by ``torch.autograd.grad``. In a process group the batch
+    is this rank's rows of the global batch, and so are the draws; the loss
+    and the gradients are this rank's own (:func:`apply_gradients` averages
+    the gradients over the ranks)."""
+    x, y = _specs(model, x_wav, y_wav)
+    model.train()
+    names = [n for n, p in state.params.items() if p.requires_grad]
+    with parallel.global_rows(parallel.rank(), parallel.world()):
+        loss = model.step_loss(x, y, generator)
+    grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
 def train_step(model: ScoreModel, state: TrainState, x_wav, y_wav,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One train step on a waveform batch: spectrograms on the device, the loss
-    in ``train()`` mode (which advances the model state, the BatchNorm
-    statistics, once), its gradients, Adam and the EMA. Returns the loss (a
-    device scalar: reading it waits for the step)."""
-    x, y = _specs(model, x_wav, y_wav)
-    model.train()
-    loss = model.step_loss(x, y, generator)
-    names = [n for n, p in state.params.items() if p.requires_grad]
-    grads = torch.autograd.grad(loss, [state.params[n] for n in names])
-    apply_gradients(state, dict(zip(names, grads)), model.ema_decay)
-    return loss.detach()
+    in ``train()`` mode, its gradients (:func:`compute_gradients`), Adam and
+    the EMA (:func:`apply_gradients`, which averages the gradients over the
+    ranks). Returns this rank's loss (a device scalar: reading it waits for
+    the step)."""
+    loss, grads = compute_gradients(model, state, x_wav, y_wav, generator)
+    apply_gradients(state, grads, model.ema_decay)
+    return loss
 
 
 def valid_step(model: ScoreModel, x_wav, y_wav,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """The loss on a waveform batch in ``eval()`` mode, without gradients."""
+               generator: Optional[torch.Generator] = None, skip: bool = False):
+    """The loss on a waveform batch in ``eval()`` mode, without gradients.
+    With ``skip`` it only makes the step's draws (t and z) and returns None:
+    a rank passes over another rank's validation batch so, and its generator
+    moves as in a one-process validation."""
     x, y = _specs(model, x_wav, y_wav)
     model.eval()
     with torch.no_grad():
+        if skip:
+            model.draw_t(x.shape[0], generator, x.device)
+            crandn(x.shape, generator, x.device)
+            return None
         return model.step_loss(x, y, generator)
+
+
+def _copy(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    if generator is None:
+        return None
+    g = torch.Generator(device=generator.device)
+    g.set_state(generator.get_state())
+    return g
 
 
 @contextlib.contextmanager
@@ -202,11 +257,13 @@ def ema_weights(state: TrainState):
 
 
 class Trainer:
-    """Training orchestrator (the JAX ``Trainer`` on one device): train steps,
-    logging every ``log_every_n_steps``, validation with the in-training
-    evaluation at the end of every epoch, and the four checkpoint policies.
+    """Training orchestrator (the JAX ``Trainer``): train steps, logging every
+    ``log_every_n_steps``, validation with the in-training evaluation at the
+    end of every epoch, and the four checkpoint policies. In a process group
+    (``parallel``) it is one rank: its gradients are averaged over the ranks
+    before each update, and only rank 0 logs and writes checkpoints, in the run directory of rank 0's logger.
     ``history`` collects (step, train loss) of every step, read at the log
-    points."""
+    points; the loss is the global batch's, the mean over the ranks."""
 
     def __init__(self, model: ScoreModel, data_module: SpecsDataModule, logger: Logger,
                  log_dir: str = "logs", max_epochs: int = -1, max_steps: int = -1,
@@ -221,7 +278,9 @@ class Trainer:
         self.log_every_n_steps = log_every_n_steps
         self.seed = seed
         self.device = torch.device(device if device is not None else "cuda")
-        self.ckpt_dir = Path(log_dir) / str(logger.version)
+        self.rank, self.world, self.is_main = parallel.rank(), parallel.world(), parallel.is_main()
+        # Every rank's run directory is rank 0's (its logger picked the version).
+        self.ckpt_dir = Path(log_dir) / parallel.broadcast_str(str(logger.version))
         self.policies = CheckpointPolicies(self.ckpt_dir, save_ckpt_interval,
                                            monitor_metrics=model.num_eval_files > 0)
         self.history: List[tuple] = []
@@ -245,14 +304,15 @@ class Trainer:
         train_loader = self.data_module.train_dataloader()
         valid_loader = self.data_module.val_dataloader()
         config = model.config_dict()
-        self.logger.log_hparams(config)
+        if self.is_main:
+            self.logger.log_hparams(config)
 
         self.policies.start_from(state.step)
         epoch, running, running_samples, t_start = 0, [], 0, time.time()
         done = False
 
         def log_running():  # the losses since the last log point: one wait for the device
-            values = torch.stack(running).tolist()
+            values = pdist.average_(torch.stack(running)).tolist()  # the global batch's
             self.history.extend(zip(range(state.step - len(values) + 1, state.step + 1), values))
             running.clear()
             return values
@@ -260,24 +320,27 @@ class Trainer:
         while not done and not (self.max_epochs >= 0 and epoch >= self.max_epochs):
             for x_wav, y_wav in train_loader:
                 running.append(train_step(model, state, x_wav, y_wav, generator))
-                running_samples += x_wav.shape[0]
+                running_samples += x_wav.shape[0] * self.world  # the global batch
                 if state.step % self.log_every_n_steps == 0:
                     avg = float(np.mean(log_running()))
                     rate = running_samples / (time.time() - t_start)
-                    self.logger.log_metrics({"train_loss": avg, "samples_per_sec": rate},
-                                            state.step)
-                    print(f"step {state.step}: train_loss={avg:.4f} ({rate:.1f} samples/s)",
-                          flush=True)
+                    if self.is_main:
+                        self.logger.log_metrics({"train_loss": avg, "samples_per_sec": rate},
+                                                state.step)
+                        print(f"step {state.step}: train_loss={avg:.4f} ({rate:.1f} "
+                              "samples/s)", flush=True)
                     running_samples, t_start = 0, time.time()
-                self.policies.on_train_step(state.step, state.tree(), config)
+                if self.is_main:
+                    self.policies.on_train_step(state.step, state.tree(), config)
                 done = self.max_steps >= 0 and state.step >= self.max_steps
                 if done:
                     break
             if not done:
                 epoch += 1
             self.metrics = self.validate(state, valid_loader, generator)
-            self.logger.log_metrics(self.metrics, state.step)
-            self.policies.on_validation(state.step, state.tree(), config, self.metrics)
+            if self.is_main:
+                self.logger.log_metrics(self.metrics, state.step)
+                self.policies.on_validation(state.step, state.tree(), config, self.metrics)
         if running:  # steps after the last log point
             log_running()
         return state
@@ -285,15 +348,28 @@ class Trainer:
     def validate(self, state: TrainState, valid_loader, generator=None) -> Dict[str, float]:
         """Validation on the EMA weights with the live model state, in
         ``eval()`` mode: the sample-weighted mean loss over the valid split,
-        and the in-training evaluation on ``num_eval_files``."""
+        and the in-training evaluation on ``num_eval_files``. It draws from a
+        copy of ``generator``, so the training draws go on as if it had not
+        run (the JAX trainer's key is not advanced by validation either).
+
+        As a rank (``sgmse_tpu/train.py:366-423``): batch i is rank i mod
+        world's, and batch 0 runs on every rank (only its owner counts it);
+        a rank makes the draws of the batches it passes over, so batch i's
+        draws are those of a one-process validation. Each rank evaluates its
+        share of the eval files (``shard_eval_files``), and one collective sums
+        every rank's (sum, count) pairs."""
         model = self.model
         model.eval()
+        generator = _copy(generator)
         with ema_weights(state):
             loss_acc, n_samples = None, 0
-            for x_wav, y_wav in valid_loader:
-                loss = valid_step(model, x_wav, y_wav, generator) * x_wav.shape[0]
-                loss_acc = loss if loss_acc is None else loss_acc + loss
-                n_samples += x_wav.shape[0]
+            for i, (x_wav, y_wav) in enumerate(valid_loader):
+                mine = i % self.world == self.rank
+                loss = valid_step(model, x_wav, y_wav, generator, skip=not (mine or i == 0))
+                if mine:
+                    loss = loss * x_wav.shape[0]
+                    loss_acc = loss if loss_acc is None else loss_acc + loss
+                    n_samples += x_wav.shape[0]
             sums = {"valid_loss": (float(loss_acc) if loss_acc is not None else 0.0, n_samples)}
             valid_set = self.data_module.valid_set
             if model.num_eval_files > 0 and valid_set is not None and valid_set.clean_files:
@@ -304,6 +380,7 @@ class Trainer:
                                            generator=generator, N=model.sde.N,
                                            return_sums=True))
         model.train()
+        sums = parallel.reduce_sums(sums)
         return {k: (float(s) / float(c) if c else float("nan")) for k, (s, c) in sums.items()}
 
 
@@ -331,14 +408,26 @@ def build_parser(argv=None):
                              help="Directory to save logs.")
         parser_.add_argument("--save_ckpt_interval", type=int, default=50000,
                              help="Save checkpoint interval.")
+        parser_.add_argument("--distributed", type=str, default="none", choices=("none", "auto"),
+                             help="'auto': this process is one rank of a group started by "
+                                  "torchrun or SLURM, read from their environment.")
+        parser_.add_argument("--coordinator_address", type=str, default=None,
+                             help="host:port of rank 0's rendezvous (multi-host training).")
+        parser_.add_argument("--num_processes", type=int, default=None,
+                             help="Total number of processes (ranks) of the group.")
+        parser_.add_argument("--process_id", type=int, default=None,
+                             help="This process's rank in [0, num_processes).")
     temp_args, _ = base_parser.parse_known_args(argv)
     backbone_cls = BackboneRegistry.get_by_name(temp_args.backbone)
     sde_class = SDERegistry.get_by_name(temp_args.sde)
 
     trainer_parser = parser.add_argument_group("Trainer", description="Trainer")
     trainer_parser.add_argument("--devices", default="auto",
-                                help="How many devices to use ('auto' = 1; more is not "
-                                     "ported yet).")
+                                help="How many GPUs of this host to train on, one rank each "
+                                     "('auto' = all visible); --batch_size is split over "
+                                     "them, as the JAX trainer splits it over its devices. "
+                                     "Ignored under the bootstrap flags, where each process "
+                                     "is one rank and loads --batch_size rows itself.")
     trainer_parser.add_argument("--accumulate_grad_batches", type=int, default=1,
                                 help="Accumulate gradients.")
     trainer_parser.add_argument("--max_epochs", type=int, default=-1,
@@ -362,24 +451,19 @@ def build_parser(argv=None):
     return parser, parser.parse_args(argv)
 
 
-def main(argv=None, device=None) -> dict:
-    """Train. Runs on the card; ``device="cpu"`` (not a command-line flag) runs
-    the plain versions on the CPU, for tests. Returns the run's statistics."""
+def _train(argv, device, split_batch: bool = False) -> dict:
+    """Build the model, the data and the trainer of ``argv`` on ``device`` and
+    fit: alone, or as this process's rank of the running group (with
+    ``split_batch``, a rank of ``--devices N``: ``--batch_size`` is split over
+    the ranks)."""
     parser, args = build_parser(argv)
-    if args.devices not in ("auto", "1"):
-        raise NotImplementedError(f"--devices {args.devices}: training on more than one "
-                                  "device is not ported yet (ROADMAP A13)")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("sgmse_tpu_torch.train runs on a CUDA device, and "
-                               "torch.cuda.is_available() is false")
-        device = "cuda"
     groups = _argument_groups(parser, args)
     model = ScoreModel(backbone=args.backbone, sde=args.sde,
                        **{**groups["ScoreModel"], **groups["SDE"], **groups["Backbone"],
                           **groups["DataModule"]})
-    data_module = SpecsDataModule(**groups["DataModule"], seed=args.seed)
-    logger = make_logger(args.nolog, args.log_dir, args.wandb_name)
+    data_module = SpecsDataModule(**groups["DataModule"], seed=args.seed,
+                                  split_batch=split_batch)
+    logger = make_logger(args.nolog, args.log_dir, args.wandb_name, is_main=parallel.is_main())
     trainer = Trainer(model, data_module, logger, log_dir=args.log_dir,
                       max_epochs=args.max_epochs, max_steps=args.max_steps,
                       accumulate_grad_batches=args.accumulate_grad_batches,
@@ -387,9 +471,66 @@ def main(argv=None, device=None) -> dict:
                       device=device)
     t0 = time.time()
     state = trainer.fit(ckpt_path=args.ckpt)
+    digest = hashlib.sha256()
+    for tree in (state.params, state.ema_params, state.model_state):
+        for n, t in tree.items():
+            digest.update(n.encode() + t.detach().cpu().numpy().tobytes())
     return dict(step=state.step, num_updates=state.num_updates, ckpt_dir=str(trainer.ckpt_dir),
                 history=trainer.history, metrics=trainer.metrics, fit_s=time.time() - t0,
-                device=str(torch.device(device)))
+                device=str(torch.device(device)), rank=parallel.rank(), world=parallel.world(),
+                state_sha256=digest.hexdigest())
+
+
+def _rank_main(rank: int, world: int, init_method: str, argv, device_type: str,
+               threads: int) -> dict:
+    """One rank of ``--devices N`` (:func:`parallel.dist.spawn`'s target), on
+    ``threads`` CPU threads."""
+    device = pdist.rank_device(device_type, rank)
+    torch.set_num_threads(threads)
+    parallel.init_process_group(init_method, world, rank, device)
+    return _train(argv, device, split_batch=True)
+
+
+def main(argv=None, device=None, timeout: Optional[float] = None) -> dict:
+    """Train. Runs on the card; ``device="cpu"`` (not a command-line flag) runs
+    the plain versions on the CPU, for tests. Returns the run's statistics
+    (rank 0's, with every rank's under ``ranks`` when this call started them;
+    ``state_sha256`` digests the final parameters, EMA and model state).
+
+    Under the bootstrap flags this process joins the group as one rank, on
+    ``cuda:<local rank>``. Otherwise ``--devices N`` > 1 starts N ranks here,
+    one process per device (N gloo ranks for ``device="cpu"``), each training
+    batch_size / N rows of every batch (ValueError where N does not divide
+    ``--batch_size``), and waits for them: at most ``timeout`` seconds (a Python-API limit for tests; None:
+    none), then every rank is ended and this raises."""
+    parser, args = build_parser(argv)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("sgmse_tpu_torch.train runs on a CUDA device, and "
+                               "torch.cuda.is_available() is false")
+        device = "cuda"
+    device = torch.device(device)
+    boot = pdist.bootstrap(args.coordinator_address, args.num_processes, args.process_id,
+                           args.distributed)
+    if boot is not None:
+        rank_dev = pdist.rank_device(device.type, boot["rank"], boot["local_rank"])
+        parallel.init_process_group(boot["init_method"], boot["world_size"], boot["rank"],
+                                    rank_dev)
+        try:
+            return _train(argv, rank_dev)
+        finally:
+            torch.distributed.destroy_process_group()
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = visible if args.devices == "auto" else int(args.devices)
+    if n < 1 or (device.type == "cuda" and n > visible):
+        raise ValueError(f"--devices {args.devices}: {visible} visible {device.type} device(s)")
+    if n == 1:
+        return _train(argv, device)
+    if args.batch_size % n:
+        raise ValueError(f"--batch_size {args.batch_size} does not split over --devices {n}")
+    threads = max(1, torch.get_num_threads() // n)  # this process's threads, shared out
+    ranks = pdist.spawn(_rank_main, n, (argv, device.type, threads), timeout)
+    return dict(ranks[0], ranks=ranks)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 evaluation (enhance validation files, score them).
 
 Counterpart of ``sgmse_tpu/utils/inference.py`` (a module that imports jax,
-so the port keeps its own copy): ``target_sr_and_pad``, and, for one process,
-``select_eval_files``, ``shard_eval_files`` and ``evaluate_model`` with the
+so the port keeps its own copy): ``target_sr_and_pad``, ``select_eval_files``,
+``shard_eval_files`` (by rank) and ``evaluate_model`` with the
 reference's settings (PC sampler, N=30, snr 0.5, one corrector step; mean
 PESQ / SI-SDR / ESTOI).
 """
@@ -14,6 +14,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.wav import read_wav, resample
 from .metrics import pesq_wb, si_sdr, stoi
 
@@ -40,13 +41,16 @@ def select_eval_files(clean_files: Sequence[str], noisy_files: Sequence[str],
     return [clean_files[i] for i in indices], [noisy_files[i] for i in indices]
 
 
-def shard_eval_files(files: list, process_index: int = 0, process_count: int = 1) -> list:
-    """This process's share of the eval files; the last process takes the
-    remainder. The port trains in one process, which takes them all."""
-    per = len(files) // process_count
-    if process_index == process_count - 1:
-        return files[process_index * per:]
-    return files[process_index * per:(process_index + 1) * per]
+def shard_eval_files(files: list, process_index: Optional[int] = None,
+                     process_count: Optional[int] = None) -> list:
+    """This rank's share of the eval files (by default this process's rank in
+    the process group, ``parallel``); the last rank takes the remainder."""
+    rank = parallel.rank() if process_index is None else process_index
+    world = parallel.world() if process_count is None else process_count
+    per = len(files) // world
+    if rank == world - 1:
+        return files[rank * per:]
+    return files[rank * per:(rank + 1) * per]
 
 
 def evaluate_model(model, clean_files: Sequence[str], noisy_files: Sequence[str],

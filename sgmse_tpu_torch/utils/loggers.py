@@ -1,8 +1,8 @@
 """Training loggers: CSV (+ JSONL) and wandb, gated.
 
 The port's copy of ``sgmse_tpu/utils/loggers.py`` (that module cannot be
-imported without JAX, because importing ``sgmse_tpu`` imports it), for one
-process: ``CSVLogger`` writes ``{save_dir}/sgmse/version_N/metrics.csv`` and
+imported without JAX, because importing ``sgmse_tpu`` imports it):
+``CSVLogger`` writes ``{save_dir}/sgmse/version_N/metrics.csv`` and
 ``metrics.jsonl`` (the reference's ``--nolog`` / lightning_logs CSV path);
 ``WandbLogger`` wraps wandb (project "sgmse") when the package imports.
 """
@@ -98,9 +98,20 @@ class WandbLogger(Logger):
         self._run.finish()
 
 
-def make_logger(nolog: bool, log_dir: os.PathLike, wandb_name: Optional[str] = None) -> Logger:
+class NullLogger(Logger):
+    """The logger of the ranks other than 0: writes nothing."""
+
+    def log_metrics(self, metrics: Dict[str, float], step: int) -> None:
+        pass
+
+
+def make_logger(nolog: bool, log_dir: os.PathLike, wandb_name: Optional[str] = None,
+                is_main: bool = True) -> Logger:
     """The reference's logger selection: wandb unless ``--nolog``, CSV when
-    ``--nolog`` is given or wandb is not installed."""
+    ``--nolog`` is given or wandb is not installed; a :class:`NullLogger` on
+    the ranks other than 0 (Lightning makes the logger on rank 0 only)."""
+    if not is_main:
+        return NullLogger()
     if not nolog:
         try:
             return WandbLogger(project="sgmse", name=wandb_name, save_dir=log_dir)

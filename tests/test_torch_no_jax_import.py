@@ -24,6 +24,8 @@ def test_entry_point_imports_with_jax_blocked():
         "import sgmse_tpu_torch.utils.pesq_loss, sgmse_tpu_torch.data.native\n"
         "import sgmse_tpu_torch.kernel_times, sgmse_tpu_torch.nfe_profile\n"
         "import sgmse_tpu_torch.models.dcunet, sgmse_tpu_torch.serve\n"
+        "import sgmse_tpu_torch.parallel.dist, sgmse_tpu_torch.parallel.rows\n"
+        "import sgmse_tpu_torch.parallel.pool\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"

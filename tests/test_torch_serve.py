@@ -394,9 +394,14 @@ def test_build_enhancer_from_flags(tmp_path):
     built, enh, _ = serve.build_enhancer(args, device="cpu")
     with enh:
         assert built.sde.sampler_type == "ode" and enh.pad_mode == "reflection"
-    with pytest.raises(NotImplementedError, match="A13"):
-        serve.build_enhancer(serve.build_parser().parse_args(flags + ["--data_parallel"]),
-                             device="cpu")
+    # --data_parallel (refused before data parallelism) splits the batches over a
+    # worker pool: one worker on the CPU (tests/test_torch_data_parallel.py runs two)
+    built, enh, _ = serve.build_enhancer(
+        serve.build_parser().parse_args(flags + ["--N", "1", "--corrector", "none",
+                                                 "--data_parallel"]), device="cpu")
+    with enh:
+        assert built.devices == [torch.device("cpu")] and built.sde.sampler_type == "pc"
+        assert enh.enhance(np.zeros(2016, np.float32), timeout=120).shape == (2016,)
 
 
 def test_serve_help_runs():
@@ -413,3 +418,5 @@ def test_serve_entry_point_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         serve.main(["--weights", str(tmp_path / "w.npz"), "--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        serve.main(["--weights", str(tmp_path / "w.npz"), "--port", "0", "--data_parallel"])

@@ -253,13 +253,21 @@ def test_bridge_recipe_trains_through_the_entry_point(wav_dataset, tmp_path):
 
 
 def test_train_entry_point_needs_a_card_and_one_device(wav_dataset, tmp_path, monkeypatch):
+    """Without a card the entry point raises before it writes anything; with
+    ``device="cpu"`` ``--devices 2`` trains two gloo ranks (``--devices`` was
+    one device only before data parallelism; ``tests/test_torch_ddp.py``
+    holds the ranks to one process)."""
     argv = ["--base_dir", str(wav_dataset), "--log_dir", str(tmp_path / "logs"), *CLI]
-    with pytest.raises(NotImplementedError, match="A13"):
-        train.main(argv + ["--devices", "2"], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        train.main(argv + ["--devices", "2"])
     with pytest.raises(RuntimeError, match="CUDA device"):
         train.main(argv)
     assert not (tmp_path / "logs").exists()
+    stats = train.main(argv + ["--devices", "2", "--max_steps", "1", "--num_eval_files", "0"],
+                       device="cpu", timeout=180)
+    assert [(r["rank"], r["world"], r["step"]) for r in stats["ranks"]] == [(0, 2, 1), (1, 2, 1)]
+    assert stats["ranks"][0]["state_sha256"] == stats["ranks"][1]["state_sha256"]
 
 
 def test_enhance_eval_on_sbve_ignores_n():
