@@ -143,10 +143,35 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    the padded batch's draws, and in f32 within 1e-5 of max|out| of one
    device on the whole zero-padded batch (in bf16 one device alone moves by
    ~2e-2 between batches of 2 and 4, printed); the workers' launch counts
-   read from them; (e) ``serve.build_enhancer``
+   read from them; then, in f32 at B=3 (a zero row pads the batch and enters
+   the statistics), what couples a batch's rows, reduced over the workers'
+   gloo group: PC N=5 + ``langevin``, the rk45 ODE (``max_steps`` 4) and
+   DCUNet-CbN (phase 12's DilDCUNet-v2 with CbN) through two workers, each
+   within 1e-5 of max|out| of one device on the zero-padded batch with the
+   same NFE, each worker making the same collectives (their count and host
+   ms per batch printed); (e) ``serve.build_enhancer``
    with ``--data_parallel`` on the same two workers: a burst of 8 requests,
    each answer against ``model.enhance`` of its batch; then a line on what
-   one card cannot verify. ``--only 13`` runs phases 1-2 and 13.
+   one card cannot verify. ``--only 13`` runs phases 1-2 and 13;
+14. the host side and the learn demo's net (``sgmse_tpu_torch.tools``): (a)
+   every K1 and K2 call signature of the demo net's forward (nf 32, ch_mult
+   1 1 2 2, one res-block per level, F=T=256) at B=8, the enhancement's
+   batch, and every K1, K1-adjoint, K2 and K2b signature of its B=16 train
+   step, kernel against plain in f32 and bf16 with phases 3 and 9a's
+   tolerances (forward timed in bf16, the step in f32), its forward through
+   the kernels against plain with the launch counts (12 K1 and 45 K2 per
+   forward; 12 K1, 9 K1 adjoints, 45 K2 and 45 K2b per step); (b) the learn
+   demo cut to about two minutes (``DEMO_CUT``: 320 steps of the 1,024-file
+   corpus, 5 validations with 2 eval files) through
+   ``python -m sgmse_tpu_torch.tools.learn_demo``'s ``main``: the corpus,
+   ``train.main``, ``enhance.main`` of the 16 test files with ``best_pesq``
+   and ``calc_metrics``, with PyTorch's default cuDNN TF32; finite metrics,
+   a validation loss that falls from the first validation to the last, every
+   training and validation batch from the native loader, and the launch
+   counts of the run's train steps and network evaluations exact; the
+   enhanced-vs-noisy deltas printed; (c) ``tools.bf16_quality`` on (b)'s
+   ``best_pesq``, the 16 test files in f32 and bf16: mean and largest
+   deltas. ``--only 14`` runs phases 1-2 and 14.
 
 Each entry-point path is driven with the launch counters set to 0 just before
 it and read just after. The seconds of each phase are printed before the
@@ -238,6 +263,19 @@ DCUNET_PARAMS, DCUNET_STATS = 3_531_970, 3_328
 DCUNET_TRAIN_B = 8
 DCUNET_BF16_F32_TOL = 0.1  # bf16 against f32 output on one evaluation, relative to max|f32|
 RK45_MAX_STEPS = 4
+# Phase 14: the learn demo's net (kernel_times.VARIANTS["learn_demo"]), its launches per
+# forward and per train step (as its dispatchers record them on the CPU), the enhancement's
+# and the training's batch, the cut recipe (about two minutes), and each validation's network
+# evaluations (the valid loss on one batch of the 16 valid files, and PC N=30 + ald on the 2
+# eval files, one batch).
+NETS["learn_demo"] = dict(launches={"upfirdn2d": 12, "group_norm_act": 45}, silu_split=[44, 1],
+                          pre_bias=20, params=1_377_050, k6=0)
+DEMO_TRAIN_LAUNCHES = {"upfirdn2d": 12, "upfirdn2d_adjoint": 9, "group_norm_act": 45,
+                       "group_norm_act_bwd": 45}
+DEMO_ENHANCE_B, DEMO_TRAIN_B = 8, 16
+DEMO_CUT = ["--num_train", "1024", "--max_steps", "320", "--num_eval_files", "2",
+            "--no_profile"]
+DEMO_VALIDATION_FORWARDS = 1 + EVAL_NFE
 # Phase 11, serving: the flags of python -m sgmse_tpu_torch.serve (--max_seconds and
 # --chunk_seconds cut from 30 and 10 s, so that a 6-s request takes the long path in a short
 # phase), the NFE of a batch (PC N=30 + ald), the served batch against model.enhance of the
@@ -265,6 +303,7 @@ DP_TRAIN_STEPS, DP_TWO_RANK_STEPS = 10, 3
 DP_LOSS_RTOL, DP_GRAD_TOL = 1e-6, 1e-5
 DCUNET_DP_LOSS_RTOL, DCUNET_DP_GRAD_TOL, DCUNET_DP_STATS_TOL = 1e-4, 1e-2, 1e-5
 DP_TOL, DP_N, DP_SERVE_REQUESTS = 1e-5, 5, 8
+DP_COUPLED_B = 3  # 13d's coupled paths: two workers hold 2 rows each, one of them padding
 ONE_CARD_LIMITS = ("13: one card cannot verify NCCL across cards (13a is a world of one; 13b "
                    "and 13c put two gloo ranks on one card, a test arrangement), the time of "
                    "the gradient all-reduce over NVLink (it runs after the backward, with no "
@@ -377,11 +416,11 @@ def check_kernels(counts, dev, backbone, timed=True):
     return rows
 
 
-def network_checks(backbone, dev, report):
-    """Phases 3 and 4 (and 12a-c) for one full-width net of NETS (a backbone, or
-    a kernel_times.VARIANTS name): kernel checks and timings at its call
-    signatures, then its forward through the kernels against the plain
-    versions. Returns (model, kernel rows)."""
+def network_checks(backbone, dev, report, batch=B):
+    """Phases 3 and 4 (and 12a-c, 14a) for one full-width net of NETS (a
+    backbone, or a kernel_times.VARIANTS name) at ``batch``: kernel checks and
+    timings at its call signatures, then its forward through the kernels
+    against the plain versions. Returns (model, kernel rows)."""
     import torch
     from sgmse_tpu_torch import kernel_times as kt
 
@@ -389,7 +428,7 @@ def network_checks(backbone, dev, report):
     arch, settings = kt.VARIANTS.get(backbone, (backbone, {}))
     model = kt.full_model(dev, backbone=arch, **settings)
     n_params = sum(p.numel() for p in model.parameters())
-    x, y, t = kt.network_inputs(dev, kt.BINS[arch])
+    x, y, t = kt.network_inputs(dev, kt.BINS[arch], batch=batch)
     with torch.inference_mode():
         with kt.routed(calls=[], plain=True) as calls:
             out_plain = model.dnn(x, y, t)
@@ -419,7 +458,7 @@ def network_checks(backbone, dev, report):
     torch.cuda.synchronize()
     moved = counters()
     rel = ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item()
-    print(f"{backbone} full forward: {n_params} params, B={B} F={x.shape[2]} T={x.shape[3]} "
+    print(f"{backbone} full forward: {n_params} params, B={batch} F={x.shape[2]} T={x.shape[3]} "
           f"f32, kernels vs plain rel err {rel:.3e} (bound {FORWARD_TOL}); launches {moved} "
           f"({k6} of upfirdn2d K6 FIR passes at up = down = 1), group_norm_act with/without "
           f"SiLU {silu_split}, with the temb pre-bias {with_bias}")
@@ -437,13 +476,16 @@ def network_checks(backbone, dev, report):
     return model, rows
 
 
-def summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path):
+def summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path,
+              demo_train_rows=()):
     """The kernels line: K1 and K2 per network evaluation of the flagship
     (bf16 device times, B=4), the backward kernels per train step (float32,
     B=8); every kernel's per-train-step sums also under ``per_train_step``,
     those of the bridge's B=16 step under ``per_bridge_train_step``, those of
-    phase 12's nets per evaluation under ``per_nfe_<net>`` and those of the
-    48 kHz residual net's B=8 step under ``per_48k_residual_train_step``."""
+    phase 12's and 14's nets per evaluation under ``per_nfe_<net>``, those of
+    the 48 kHz residual net's B=8 step under ``per_48k_residual_train_step``
+    and those of the learn demo's B=16 step under
+    ``per_learn_demo_train_step``."""
     from sgmse_tpu_torch import kernel_times as kt
 
     sums = {bb: kt.per_nfe([r for r in rows if "ms" in r and r["backbone"] == bb])
@@ -451,10 +493,11 @@ def summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_pa
     train_sums = kt.per_nfe([r for r in train_rows if "ms" in r])
     bridge_sums = kt.per_nfe([r for r in bridge_rows if "ms" in r])
     residual_sums = kt.per_nfe([r for r in residual_train_rows if "ms" in r])
+    demo_sums = kt.per_nfe([r for r in demo_train_rows if "ms" in r])
     out = []
     for name in REPLACES:
         mine = [r for r in rows + train_rows + bridge_rows + residual_train_rows
-                if r["name"] == name]
+                + list(demo_train_rows) if r["name"] == name]
         source, replaces = REPLACES[name]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -474,13 +517,16 @@ def summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_pa
                                       if k != "library_note"})
         else:  # per train step
             entry.update(per_step)
-        for net in ("48k_residual", "ncsnpp_variant"):
+        for net in ("48k_residual", "ncsnpp_variant", "learn_demo"):
             if name in sums[net]:
                 entry[f"per_nfe_{net}"] = {k: v for k, v in sums[net][name].items()
                                            if k != "library_note"}
         if name in residual_sums:
             entry["per_48k_residual_train_step"] = {
                 k: v for k, v in residual_sums[name].items() if k != "library_note"}
+        if name in demo_sums:
+            entry["per_learn_demo_train_step"] = {
+                k: v for k, v in demo_sums[name].items() if k != "library_note"}
         out.append(entry)
     return out
 
@@ -1954,9 +2000,76 @@ def data_parallel_enhance(report, launches_by_path, dev):
                 report["dp_enhance"][f"{precision}_B{batch}"] = dict(
                     rel_err=rel, rel_err_one_device_halves=rel_blocks, split_max_abs=split,
                     wall_s=wall, launches=launches)
+            if precision == "float32":
+                y = wavs[:DP_COUPLED_B]
+                for what, kw in (("langevin", dict(N=DP_N, corrector="langevin")),
+                                 ("rk45", dict(sampler_type="ode", method="rk45",
+                                               max_steps=RK45_MAX_STEPS))):
+                    report["dp_enhance"][what] = coupled_check(dp, model, y, what, kw, seeded)
         del model
         torch.cuda.empty_cache()
     launches_by_path["dp_enhance"] = total
+    report["dp_enhance"]["cbn"] = data_parallel_cbn(dev)
+
+
+def coupled_check(dp, model, y, what, kw, seeded):
+    """13d: ``dp.enhance`` of ``y`` (f32) on a path that couples the batch's
+    rows against ``model.enhance`` on one device of the zero-padded batch:
+    within DP_TOL of max|out|, the same NFE, the same collectives on each
+    worker (their count and host ms printed; the time with gloo on CUDA
+    tensors includes the copies to the host and the wait for the stream)."""
+    import torch
+
+    padded = np.concatenate([y, np.zeros((len(y) % 2, y.shape[1]), np.float32)])
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="ODE sampler hit max_steps")
+        dp.enhance(y, generator=seeded(), **kw)  # the workers' first run of this path
+        dp.collective_counts(reset=True)
+        t0 = time.time()
+        out, nfe, _ = dp.enhance(y, generator=seeded(), timeit=True, **kw)
+        wall = time.time() - t0
+        collectives = dp.collective_counts()
+        t0 = time.time()
+        ref, ref_nfe, _ = model.enhance(padded, generator=seeded(), timeit=True, **kw)
+        torch.cuda.synchronize()
+        one_wall = time.time() - t0
+    rel = float(np.abs(out - ref[:len(y)]).max() / np.abs(ref).max())
+    calls = [c["calls"] for c in collectives]
+    host_ms = max(c["seconds"] for c in collectives) * 1e3
+    steps = f", {(nfe - 3) // 6} rk45 steps on both" if what == "rk45" else ""
+    print(f"13d {what} --data_parallel, float32, B={len(y)} over two workers on one card: "
+          f"{rel:.2e} of max|out| against one device on the zero-padded batch (bound "
+          f"{DP_TOL}); NFE {nfe} (one device {ref_nfe}){steps}; {calls[0]} collectives per "
+          f"worker per batch, {host_ms:.1f} ms in them (host clock, gloo on CUDA tensors); "
+          f"{wall:.2f} s through the workers, {one_wall:.2f} s on one device")
+    if (rel > DP_TOL or nfe != ref_nfe or len(set(calls)) != 1 or calls[0] == 0
+            or not np.isfinite(out).all()):
+        raise AssertionError(f"13d {what}: rel {rel}, NFE {nfe} vs {ref_nfe}, collectives "
+                             f"{collectives}")
+    return dict(rel_err=rel, nfe=nfe, collectives=calls[0], collective_ms=host_ms, wall_s=wall,
+                one_device_wall_s=one_wall)
+
+
+def data_parallel_cbn(dev):
+    """13d: DCUNet with CbN (phase 12's DilDCUNet-v2, f32, seeded) through two
+    workers on ``cuda:0``, PC N=DP_N + ald on DP_COUPLED_B 1-s inputs: its
+    batch statistics reduced over the workers (two all-reduces per CbN layer
+    per evaluation), against one device on the zero-padded batch."""
+    import torch
+    from sgmse_tpu_torch.parallel.pool import DataParallelModel
+
+    cbn = dcunet_model(dev, dcunet_norm_type="CbN")
+    y = np.stack([speech(1.0, 16000, SEED + 150 + i) for i in range(DP_COUPLED_B)])
+    t0 = time.time()
+    with DataParallelModel(cbn, ["cuda:0", "cuda:0"]) as dp:
+        started = time.time() - t0
+        result = coupled_check(dp, cbn, y, "DCUNet-CbN", dict(N=DP_N), lambda: torch.Generator(
+            dev).manual_seed(SEED))
+    print(f"13d DCUNet-CbN: workers started in {started:.1f} s; "
+          f"{result['collectives'] / result['nfe']:.0f} collectives per evaluation")
+    del cbn
+    torch.cuda.empty_cache()
+    return result
 
 
 def data_parallel_serve(tmp: Path, report, launches_by_path, dev):
@@ -2025,6 +2138,77 @@ def phase_13(tmp: Path, report, launches_by_path, dev, lap):
     print(ONE_CARD_LIMITS)
 
 
+def learn_demo_cut(tmp: Path, report, launches_by_path):
+    """Phase 14b: the learn demo cut to DEMO_CUT through ``tools.learn_demo``,
+    with the counters set to 0 just before and read just after. Returns its
+    result (its ``workdir`` holds the corpus and the checkpoints)."""
+    import torch
+    from sgmse_tpu_torch.data import native
+    from sgmse_tpu_torch.tools import learn_demo
+
+    print(f"14b learn demo, cut: {' '.join(DEMO_CUT)} (the full recipe: 3,200 steps, 8 eval "
+          f"files, 50 validations; python -m sgmse_tpu_torch.tools.learn_demo)")
+    torch.cuda.synchronize()
+    reset_counters()
+    served = dict(native.SERVED)
+    with cudnn_tf32():
+        r = learn_demo.main([str(tmp / "learn_demo"), *DEMO_CUT])
+    torch.cuda.synchronize()
+    launches = counters()
+    served = {k: v - served[k] for k, v in native.SERVED.items()}
+    journey = r["validations"]
+    forwards = (len(journey) * DEMO_VALIDATION_FORWARDS + r["enhance_warmup_nfe"]
+                + r["enhance_nfe"])
+    expected = add(expect(DEMO_TRAIN_LAUNCHES, r["steps"]),
+                   expect(NETS["learn_demo"]["launches"], forwards))
+    losses = [v["valid_loss"] for v in journey]
+    finite = all(np.isfinite(v) for g in ("noisy", "enhanced", "delta") for v in r[g].values())
+    print(f"14b: {r['steps']} steps, {len(journey)} validations (valid_loss "
+          f"{[round(v, 4) for v in losses]}), best_pesq at step {r['best_pesq_step']}; noisy "
+          f"{r['noisy']}, enhanced {r['enhanced']}, delta {r['delta']}; "
+          f"{r['train_steps_per_s']:.2f} steps/s with validation, enhancement "
+          f"{r['enhance_audio_s_per_wall_s']:.2f} audio-s/wall-s; launches {launches} "
+          f"(expected {expected}: {r['steps']} steps, {forwards} evaluations); batches served "
+          f"{served}")
+    if (launches != expected or not finite or len(losses) < 2 or not losses[-1] < losses[0]
+            or served != {"native": r["steps"] + len(journey), "python": 0}):
+        raise AssertionError(f"14b: launches {launches} (expected {expected}), finite {finite}, "
+                             f"valid losses {losses}, batches served {served}")
+    launches_by_path["learn_demo"] = launches
+    report["learn_demo_cut"] = dict(r, launches=launches, batches_served=served)
+    return r
+
+
+def phase_14(tmp: Path, report, launches_by_path, dev, lap):
+    """Phase 14: the learn demo's kernel signatures (14a), the cut demo (14b)
+    and bf16 against f32 on its checkpoint (14c). Returns the kernel rows of
+    the forward and of the train step."""
+    import torch
+    from sgmse_tpu_torch.tools import bf16_quality
+
+    model, rows = network_checks("learn_demo", dev, report, batch=DEMO_ENHANCE_B)
+    del model
+    torch.cuda.empty_cache()
+    train_rows = train_kernel_checks(dev, report, "learn_demo", DEMO_TRAIN_B, "demo_train",
+                                     DEMO_TRAIN_LAUNCHES)
+    lap("14a learn demo kernels")
+    r = learn_demo_cut(tmp, report, launches_by_path)
+    lap("14b learn demo, cut")
+    ds = Path(r["workdir"]) / "ds" / "test"
+    with cudnn_tf32():
+        q = bf16_quality.main(["--ckpt", r["best_pesq"], "--test_dir", str(ds / "noisy"),
+                               "--clean_dir", str(ds / "clean"), "--workdir",
+                               str(tmp / "bf16_quality")])
+    print(f"14c bf16 against f32 on the cut demo's best_pesq, {len(q['files']['float32'])} "
+          f"test files: mean delta (PESQ, SI-SDR, ESTOI) {q['mean_delta']}, largest "
+          f"{q['max_abs_delta']}; audio-s/wall-s {q['audio_s_per_wall_s']}")
+    if not np.isfinite(q["mean_delta"]).all() or len(q["files"]["float32"]) != 16:
+        raise AssertionError(f"14c: {q['mean_delta']}")
+    report["bf16_quality_cut"] = {k: v for k, v in q.items() if k != "files"}
+    lap("14c bf16 quality")
+    return rows, train_rows
+
+
 def phase_12(tmp: Path, report, launches_by_path, dev, lap):
     """Phase 12: 12a-c (``residual_checks``), then 12d (``dcunet_checks``).
     Returns the kernel rows and the residual net's train kernel rows."""
@@ -2040,7 +2224,7 @@ def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
-    parser.add_argument("--only", choices=("12", "13"), default=None,
+    parser.add_argument("--only", choices=("12", "13", "14"), default=None,
                         help="run phases 1-2 and this phase only, and print no contract lines "
                              "(a quicker check of one phase)")
     only = parser.parse_args(argv).only
@@ -2081,7 +2265,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         if only is not None:
-            {"12": phase_12, "13": phase_13}[only](tmp, report, launches_by_path, dev, lap)
+            {"12": phase_12, "13": phase_13, "14": phase_14}[only](tmp, report, launches_by_path,
+                                                                   dev, lap)
             print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
             (OUT_DIR / f"chip_smoke_{only}.json").write_text(json.dumps(report, indent=1,
                                                                         default=str))
@@ -2230,7 +2415,14 @@ def main(argv=None):
         # --- 13. data parallelism ---------------------------------------------------------
         phase_13(tmp, report, launches_by_path, dev, lap)
 
-    summary = summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path)
+        # --- 14. the host side: the learn demo ------------------------------------------
+        t14 = time.time()
+        demo_rows, demo_train_rows = phase_14(tmp, report, launches_by_path, dev, lap)
+        rows += demo_rows
+        print(f"phase 14: {time.time() - t14:.1f} s")
+
+    summary = summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path,
+                        demo_train_rows)
     report["kernels"], report["phase_s"] = summary, phases
     print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

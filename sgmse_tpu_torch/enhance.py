@@ -245,8 +245,8 @@ def _run(args, model, device) -> dict:
             total_audio_s += len(y) / target_sr
             print(name)
     wall = time.time() - t0
-    stats = dict(files=len(items), audio_s=total_audio_s, wall_s=wall, nfe=nfe_total,
-                 warmup_nfe=warm_nfe, all_finite=all_finite, device=str(device),
+    stats = dict(files=len(items), batches=len(chunks), audio_s=total_audio_s, wall_s=wall,
+                 nfe=nfe_total, warmup_nfe=warm_nfe, all_finite=all_finite, device=str(device),
                  backbone=model.backbone, sde=model.sde_name, sample_rate=target_sr)
     if args.data_parallel:
         stats["devices"] = [str(d) for d in model.devices]

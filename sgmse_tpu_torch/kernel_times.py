@@ -26,10 +26,11 @@ signature's calls per evaluation. ``--variant`` takes the calls of one of the
 ``VARIANTS`` instead: the 48 kHz net with residual pyramids, whose K6 (FIR +
 conv) makes K1 calls at up = down = 1 (yardstick: cuDNN's stride-1
 depthwise convolution), or the full-width ``ncsnpp`` with DDPM blocks, ``cat``
-combine, no FIR and elu, whose K2 calls run without SiLU. With ``--train`` the calls are those of one
-train step of the flagship at the JAX defaults (B=8, F=T=256, float32, remat
-off; ``--batch`` sets another batch), forward and backward: K1 and K2
-forward, the K1 adjoint
+combine, no FIR and elu, whose K2 calls run without SiLU, or the learn
+demo's narrow net (``learn_demo``). With ``--train`` the calls are those of
+one train step of the flagship (or of ``--variant``) at the JAX defaults
+(B=8, F=T=256, float32, remat off; ``--batch`` sets another batch), forward
+and backward: K1 and K2 forward, the K1 adjoint
 (``upfirdn2d_adjoint``, yardstick cuDNN's depthwise convolution
 backward-input) and K2b (``group_norm_act_bwd``, yardstick
 ``aten.native_group_norm_backward``: GroupNorm only, on NCHW copies, as
@@ -64,6 +65,8 @@ VARIANTS = {
     "48k_residual": ("ncsnpp_48k", dict(progressive="residual", progressive_input="residual")),
     "ncsnpp_variant": ("ncsnpp", dict(resblock_type="ddpm", progressive_combine="cat",
                                       fir=False, nonlinearity="elu")),
+    # The learn demo's net (tools/learn_demo.py): narrow and shallow, full input size.
+    "learn_demo": ("ncsnpp", dict(nf=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1)),
 }
 SEED = 0
 REPS = 25
@@ -504,7 +507,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--variant", choices=sorted(VARIANTS), default=None,
                         help="time the call signatures of this NCSN++ variant instead "
                              "(48k_residual: K1 at the K6 signatures; ncsnpp_variant: K2 "
-                             "without SiLU)")
+                             "without SiLU; learn_demo: the learn demo's net), with --train "
+                             "those of its train step")
     parser.add_argument("--k6", action="store_true",
                         help="with --variant 48k_residual: time K6 (FIR + conv) itself at each "
                              "of its call signatures, beside one cuDNN call with the FIR folded "
@@ -526,7 +530,9 @@ def main(argv=None) -> dict:
         backbone, settings = VARIANTS[args.variant or "48k_residual"]
         counts, dtype = per_forward(record_k6_calls(dev, backbone, **settings)), torch.bfloat16
     elif args.train:
-        fwd, bwd = record_train_calls(full_model(dev), dev, args.batch)
+        backbone, settings = VARIANTS[args.variant] if args.variant else ("ncsnpp", {})
+        fwd, bwd = record_train_calls(full_model(dev, backbone=backbone, **settings), dev,
+                                      args.batch, f_bins=BINS[backbone])
         counts, dtype = per_forward(fwd + bwd), torch.float32
     else:
         backbone, settings = VARIANTS[args.variant] if args.variant else (args.backbone, {})

@@ -37,8 +37,10 @@ batch's, as the JAX package's are when its batch is sharded over a mesh:
 the per-channel statistics are all-reduced with autograd
 (``torch.distributed.nn.functional.all_reduce``), so the gradient sees the
 global statistics too, and every rank's running statistics move alike.
-``eval()`` mode reduces nothing (validation and inference run each rank's
-own batches).
+``CbN`` takes batch statistics in ``eval()`` mode too, and reduces them over
+the group that ``parallel.global_rows`` names for the batch: the
+``--data_parallel`` workers' (``parallel.pool``). Validation in training
+runs each rank's own batches outside it, and reduces nothing.
 
 Time embedding: Gaussian Fourier (``gfp``, W fixed: never trained) or
 DiffWave-style (``ds``), real or complex, then ``dcunet_temb_layers_global``
@@ -67,6 +69,7 @@ import torch.distributed as dist
 from torch.distributed.nn.functional import all_reduce
 
 from .. import parallel
+from ..parallel import rows
 from .blocks import CL, _uniform_
 from .ncsnpp import compute_dtype_for
 from .registry import BackboneRegistry
@@ -392,7 +395,12 @@ class BatchNormOnReIm(nn.Module):
 class ComplexBatchNorm(nn.Module):
     """``CbN``: whitening by the inverse square root of the 2x2 covariance of
     (re, im) per channel, from the batch's statistics in both modes, then the
-    affine map (``Wrr``, ``Wri``, ``Wii``, ``Br``, ``Bi``)."""
+    affine map (``Wrr``, ``Wri``, ``Wii``, ``Br``, ``Bi``). The statistics are
+    float64 sums, rounded to float32, and where the batch's rows are split
+    over a group they are the group's sums: two all-reduces per forward, with
+    autograd where gradients are taken. The group is the one
+    ``parallel.global_rows`` names (the ``--data_parallel`` workers'), or in
+    ``train()`` mode the process group of data-parallel training."""
 
     def __init__(self, ch: int, affine: bool = True, eps: float = 1e-5):
         super().__init__()
@@ -415,23 +423,28 @@ class ComplexBatchNorm(nn.Module):
 
     def forward(self, x):
         v = x.view(2, x.shape[0] // 2, *x.shape[1:])
-        dims = (0, 2, 3)
         xr, xi = v[0], v[1]
-        if self.training and parallel.world() > 1:  # over the global batch
-            n = xr.shape[0] * xr.shape[2] * xr.shape[3] * parallel.world()
-            m = all_reduce(torch.stack([xr.sum(dims, keepdim=True),
-                                        xi.sum(dims, keepdim=True)])) / n
-            xr, xi = xr - m[0], xi - m[1]
-            c = all_reduce(torch.stack([(xr * xr).sum(dims, keepdim=True),
-                                        (xr * xi).sum(dims, keepdim=True),
-                                        (xi * xi).sum(dims, keepdim=True)])) / n
-            vrr, vri, vii = c[0] + self.eps, c[1], c[2] + self.eps
+        group = rows.batch_group()
+        if group is None and self.training and parallel.world() > 1:
+            group = dist.group.WORLD  # data-parallel training: over the global batch
+        n = xr.shape[0] * xr.shape[2] * xr.shape[3]
+        if group is None:
+            reduce = lambda t: t  # noqa: E731 - this batch alone
+        elif torch.is_grad_enabled():  # the gradient sees the global statistics too
+            n *= dist.get_world_size(group)
+            reduce = lambda t: all_reduce(t, group=group)  # noqa: E731
         else:
-            xr = xr - xr.mean(dims, keepdim=True)
-            xi = xi - xi.mean(dims, keepdim=True)
-            vrr = (xr * xr).mean(dims, keepdim=True) + self.eps
-            vri = (xr * xi).mean(dims, keepdim=True)
-            vii = (xi * xi).mean(dims, keepdim=True) + self.eps
+            n *= dist.get_world_size(group)
+            reduce = rows.all_sum
+
+        def means(*ts):  # per channel, from float64 sums (over the group's rows)
+            return (reduce(torch.stack([t.sum((0, 2, 3), keepdim=True, dtype=torch.float64)
+                                        for t in ts])) / n).float()
+
+        m = means(xr, xi)
+        xr, xi = xr - m[0], xi - m[1]
+        c = means(xr * xr, xr * xi, xi * xi)
+        vrr, vri, vii = c[0] + self.eps, c[1], c[2] + self.eps
         tau = vrr + vii
         delta = vrr * vii - vri * vri
         s = torch.sqrt(delta)

@@ -17,6 +17,7 @@ the main process.
 """
 from __future__ import annotations
 
+import datetime
 import os
 import queue
 import shutil
@@ -51,15 +52,17 @@ def backend_for(device) -> str:
 
 
 def init_process_group(init_method: str, world_size: int, rank: int, device,
-                       backend: Optional[str] = None) -> None:
+                       backend: Optional[str] = None, timeout: Optional[float] = None) -> None:
     """Join the group as ``rank`` of ``world_size`` at ``init_method``
     (``tcp://host:port`` or ``file://path``), on ``device``: NCCL for a CUDA
-    device, gloo for the CPU, unless ``backend`` names one."""
+    device, gloo for the CPU, unless ``backend`` names one. ``timeout``
+    (seconds) bounds the wait in a collective, PyTorch's default otherwise."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    extra = {} if timeout is None else dict(timeout=datetime.timedelta(seconds=timeout))
     dist.init_process_group(backend or backend_for(device), init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=world_size, rank=rank, **extra)
 
 
 def comm_device() -> torch.device:

@@ -17,17 +17,27 @@ loads, its own copy of the kernels on first use. The device list may repeat
 a device (``["cuda:0", "cuda:0"]``, ``["cpu", "cpu"]``): a Python-API hook
 that runs the split on one card or on the CPU.
 
-What couples rows is refused, since a worker sees only its own: DCUNet's
-``CbN`` (batch statistics in inference too), the ``langevin`` corrector
-(one step size from batch means) and the ``rk45`` ODE solver (one step-size
-control over the batch's error norm).
+What couples rows reduces over a process group of the workers, which each
+joins at start-up and leaves when the pool closes: DCUNet's ``CbN`` (batch
+statistics in inference too), the ``langevin`` corrector (one step size from
+batch means) and the ``rk45`` ODE solver (one step-size control over the
+batch's norms). The pool names the group in ``global_rows`` around each call,
+and those sums go through it (``parallel.rows.all_sum``), over the global,
+zero-padded batch, as JAX reduces over its padded array: every worker takes
+the same step sizes, accepts and rejects alike, and stops at the same step.
+The group is NCCL where the workers hold distinct cards and gloo otherwise
+(the CPU, or a card repeated in the device list: NCCL refuses two ranks on
+one device); its rendezvous is a file in a temporary directory of the pool's.
 """
 from __future__ import annotations
 
 import io
 import itertools
 import math
+import os
 import queue
+import shutil
+import tempfile
 import threading
 import time
 import traceback
@@ -38,9 +48,13 @@ import numpy as np
 import torch
 import torch.multiprocessing as mp
 
-from .rows import global_rows
+from . import rows
+from .dist import init_process_group
 
 READY_TIMEOUT_S = 600.0  # a worker's start: import, replica, first use of the device
+# The longest a worker waits in a collective for the others (a kernel build on first
+# use included): past it, the call fails rather than hangs.
+COLLECTIVE_TIMEOUT_S = 600.0
 # The caller's numerics, which each worker takes on: a worker computes as the caller's
 # process would (TF32 or not, cuDNN or not, its deterministic algorithms or not).
 BACKEND_FLAGS = ((torch.backends.cudnn, "enabled"), (torch.backends.cudnn, "allow_tf32"),
@@ -48,9 +62,14 @@ BACKEND_FLAGS = ((torch.backends.cudnn, "enabled"), (torch.backends.cudnn, "allo
                  (torch.backends.cuda.matmul, "allow_tf32"))
 
 
-def _worker(index: int, count: int, device: str, tasks, results, threads: int) -> None:
+def _worker(index: int, count: int, device: str, tasks, results, threads: int,
+            group: Optional[dict]) -> None:
     """A worker's loop: build the replica from the first message (the model),
-    answer ``ready``, then enhance its rows of each task until it gets None."""
+    join the workers' group (``group``: its ``init_method`` and ``backend``;
+    None for a pool of one), answer ``ready``, then enhance its rows of each
+    task until it gets None."""
+    import torch.distributed as dist
+
     from ..model import ScoreModel  # the worker's own import, after the spawn
 
     torch.set_num_threads(threads)
@@ -62,27 +81,46 @@ def _worker(index: int, count: int, device: str, tasks, results, threads: int) -
         model.sde = payload["sde"]
         model.dnn.load_state_dict(torch.load(io.BytesIO(payload["state"]), weights_only=True))
         model = model.to(device, memory_format=torch.channels_last).eval()
+        if group is not None:
+            init_process_group(group["init_method"], count, index, device,
+                               backend=group["backend"], timeout=COLLECTIVE_TIMEOUT_S)
     except Exception:  # noqa: BLE001 - reported to the parent, which raises it
         results.put((None, index, False, traceback.format_exc()))
         return
     results.put((None, index, True, None))
-    while True:
-        task = tasks.get()
-        if task is None:
-            return
-        call, y, gen_state, kwargs = task
-        if y is None:  # a read of this worker's kernel launch counters
-            results.put((call, index, True, (_launch_counts(**kwargs), None)))
-            continue
-        try:
-            generator = torch.Generator(device=device)
-            generator.set_state(torch.from_numpy(gen_state))
-            with global_rows(index, count):
-                out = model.enhance(y, generator=generator, timeit=True, **kwargs)
-            results.put((call, index, True, (out, generator.get_state().numpy() if index == 0
-                                             else None)))
-        except Exception:  # noqa: BLE001 - the caller's future gets it
-            results.put((call, index, False, traceback.format_exc()))
+    try:
+        while True:
+            task = tasks.get()
+            if task is None:
+                return
+            call, y, gen_state, kwargs = task
+            if y is None:  # a read of this worker's counters
+                results.put((call, index, True, (_counters(**kwargs), None)))
+                continue
+            try:
+                generator = torch.Generator(device=device)
+                generator.set_state(torch.from_numpy(gen_state))
+                with rows.global_rows(index, count, dist.group.WORLD if group else None):
+                    out = model.enhance(y, generator=generator, timeit=True, **kwargs)
+                results.put((call, index, True, (out, generator.get_state().numpy()
+                                                 if index == 0 else None)))
+            except Exception:  # noqa: BLE001 - the caller's future gets it
+                results.put((call, index, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _counters(collectives: bool = False, reset: bool = False) -> Dict:
+    """This process's kernel launch counters, or with ``collectives`` its
+    collectives' count and host seconds (``parallel.rows.COLLECTIVES``); set
+    to 0 with ``reset`` after the read."""
+    if not collectives:
+        return _launch_counts(reset)
+    counts = dict(rows.COLLECTIVES)
+    if reset:
+        rows.COLLECTIVES.update(calls=0, seconds=0.0)
+    return counts
 
 
 def _launch_counts(reset: bool = False) -> Dict[str, int]:
@@ -110,16 +148,17 @@ class DataParallelModel:
     and the caller's cuDNN and TF32 settings (``BACKEND_FLAGS``)."""
 
     def __init__(self, model, devices: Sequence):
-        from ..models.dcunet import ComplexBatchNorm
-
-        if any(isinstance(m, ComplexBatchNorm) for m in model.dnn.modules()):
-            raise NotImplementedError(
-                "--data_parallel with DCUNet's CbN: its batch statistics couple the rows "
-                "of a batch in inference, and a worker sees only its own (ROADMAP A13)")
         self.model = model
         self.devices = [torch.device(d) for d in devices]
         if not self.devices or len({d.type for d in self.devices}) != 1:
             raise ValueError(f"devices {devices}: one or more of one type")
+        self._rendezvous, group = None, None
+        if len(self.devices) > 1:
+            distinct_cards = (self.devices[0].type == "cuda"
+                              and len({d.index for d in self.devices}) == len(self.devices))
+            self._rendezvous = tempfile.mkdtemp(prefix="sgmse_pool_")
+            group = dict(init_method="file://" + os.path.join(self._rendezvous, "store"),
+                         backend="nccl" if distinct_cards else "gloo")
         threads = max(1, torch.get_num_threads() // len(self.devices))
         # The weights go as bytes through the pipe, not as tensors in shared memory,
         # which a container may hold small.
@@ -132,7 +171,7 @@ class DataParallelModel:
         self._tasks = [ctx.Queue() for _ in self.devices]
         self._procs = [ctx.Process(target=_worker, daemon=True, name=f"sgmse-enhance-{i}",
                                    args=(i, len(self.devices), str(d), self._tasks[i],
-                                         self._results, threads))
+                                         self._results, threads, group))
                        for i, d in enumerate(self.devices)]
         self._calls = itertools.count()
         self._pending: Dict[int, dict] = {}
@@ -176,7 +215,6 @@ class DataParallelModel:
         workers started (``model.sde = ...``, as the serving entry point sets
         its sampler type) is the one they sample with."""
         kwargs["sde"] = kwargs.get("sde") or self.sde
-        self._check_rows_independent(kwargs)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         start = time.time()
@@ -224,22 +262,19 @@ class DataParallelModel:
         parts, _ = future.result()
         return {k: sum(p[k] for p in parts) for k in parts[0]}
 
+    def collective_counts(self, reset: bool = False) -> List[Dict]:
+        """Each worker's collectives (``calls``) and the host seconds it spent
+        in them (``seconds``) since the last reset; with ``reset`` each is set
+        to 0 after the read."""
+        future = self._submit(lambda i: (None, None, dict(collectives=True, reset=reset)))
+        return future.result()[0]
+
     def enhance_long(self, y_wav, generator: Optional[torch.Generator] = None, **kwargs):
         """``ScoreModel.enhance_long`` with each chunk enhanced through the pool."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         return self.model.enhance_long(y_wav, generator=generator, enhance=self.enhance,
                                        **kwargs)
-
-    def _check_rows_independent(self, kwargs) -> None:
-        stype = kwargs.get("sampler_type") or kwargs["sde"].sampler_type
-        if kwargs.get("corrector") == "langevin":
-            raise NotImplementedError("--data_parallel with the langevin corrector: its step "
-                                      "size comes from batch means (ROADMAP A13)")
-        if (self.model.sde_name == "ouve" and stype == "ode"
-                and kwargs.get("method", "rk45") == "rk45"):
-            raise NotImplementedError("--data_parallel with the rk45 ODE solver: its step "
-                                      "control reads the whole batch (ROADMAP A13)")
 
     # --- the workers ------------------------------------------------------------------------
 
@@ -340,6 +375,8 @@ class DataParallelModel:
         for q in (*self._tasks, self._results):
             q.cancel_join_thread()  # what a dead worker never read is dropped
             q.close()
+        if self._rendezvous is not None:
+            shutil.rmtree(self._rendezvous, ignore_errors=True)
 
     def __enter__(self):
         return self

@@ -11,16 +11,28 @@ draw of N B rows. Every generator then advances as in the one-process run.
 duration; :func:`draw` is where the draw sites (``sdes.crandn``,
 ``model.step_loss``'s diffusion times, the res-blocks' dropout) go through.
 Outside it, or with a count of one, :func:`draw` is the plain draw.
+
+What couples the rows of a batch reduces over the process group that holds
+its other rows, which :func:`global_rows` names too (``group``): the CbN
+statistics of DCUNet, the ``langevin`` corrector's batch means and the
+``rk45`` solver's norms (:func:`all_sum`). JAX computes them over its
+zero-padded global array; with the group they are the same sums over the same
+rows. Without a group, or outside :func:`global_rows`, the sums are this
+process's own.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 _STATE = threading.local()
+# all_sum's calls and host seconds in them, in this process (the on-card check reads them).
+COLLECTIVES = {"calls": 0, "seconds": 0.0}
 
 
 def current() -> Optional[Tuple[int, int]]:
@@ -28,18 +40,39 @@ def current() -> Optional[Tuple[int, int]]:
     return getattr(_STATE, "rows", None)
 
 
+def batch_group():
+    """The process group whose ranks hold the other rows of this thread's
+    batch, or None."""
+    return getattr(_STATE, "group", None)
+
+
 @contextlib.contextmanager
-def global_rows(index: int, count: int):
+def global_rows(index: int, count: int, group=None):
     """Within: batch-first draws cover ``count`` times the rows, and this
-    thread keeps the ``index``-th block of them."""
+    thread keeps the ``index``-th block of them; ``group`` (a process group of
+    ``count`` ranks, rank ``index`` this process) holds the other blocks."""
     if not 0 <= index < count:
         raise ValueError(f"row block {index} of {count}")
-    previous = current()
-    _STATE.rows = (int(index), int(count))
+    if group is not None and dist.get_world_size(group) != count:
+        raise ValueError(f"a group of {dist.get_world_size(group)} for {count} row blocks")
+    previous = current(), batch_group()
+    _STATE.rows, _STATE.group = (int(index), int(count)), group
     try:
         yield
     finally:
-        _STATE.rows = previous
+        _STATE.rows, _STATE.group = previous
+
+
+def all_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed in place over the group of this thread's batch (one
+    all-reduce); ``t`` itself without one."""
+    g = batch_group()
+    if g is not None:
+        start = time.perf_counter()
+        dist.all_reduce(t, group=g)
+        COLLECTIVES["calls"] += 1
+        COLLECTIVES["seconds"] += time.perf_counter() - start
+    return t
 
 
 def draw(fn: Callable[..., torch.Tensor], shape, **kwargs) -> torch.Tensor:

@@ -27,6 +27,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .parallel.rows import all_sum
 from .sdes import SDE, SBVESDE, crandn
 from .utils.registry import Registry
 
@@ -111,7 +112,10 @@ def ald_corrector(sde: SDE, score_fn, snr: float, n_steps: int):
 @CorrectorRegistry.register("langevin")
 def langevin_corrector(sde: SDE, score_fn, snr: float, n_steps: int):
     """Langevin dynamics with one step size for the whole batch, from the ratio
-    of the batch-mean noise and score norms. ``noise`` as for ``ald``."""
+    of the batch-mean noise and score norms. ``noise`` as for ``ald``. The
+    means are over the global batch where its rows are split over a group
+    (``parallel.rows``): the per-row norms' sums and the row count go through
+    one all-reduce, in float64, so that a split batch rounds as one does."""
 
     def update(x, y, t, generator=None, noise=None):
         x_mean = x
@@ -119,8 +123,12 @@ def langevin_corrector(sde: SDE, score_fn, snr: float, n_steps: int):
         for i in range(n_steps):
             grad = score_fn(x, y, t)
             z = crandn(x.shape, generator, x.device) if noise is None else noise[i]
-            grad_norm = torch.linalg.vector_norm(grad.reshape(b, -1), dim=-1).mean()
-            noise_norm = torch.linalg.vector_norm(z.reshape(b, -1), dim=-1).mean()
+            sums = torch.stack([
+                torch.linalg.vector_norm(grad.reshape(b, -1), dim=-1).sum(dtype=torch.float64),
+                torch.linalg.vector_norm(z.reshape(b, -1), dim=-1).sum(dtype=torch.float64),
+                torch.full((), b, dtype=torch.float64, device=x.device)])
+            grad_sum, noise_sum, rows = all_sum(sums)
+            grad_norm, noise_norm = (grad_sum / rows).float(), (noise_sum / rows).float()
             step_size = (snr * noise_norm / grad_norm) ** 2 * 2.0
             x_mean = x + step_size * grad
             x = x_mean + z * torch.sqrt(step_size * 2.0)
@@ -218,10 +226,19 @@ _DP_B4 = (5179.0 / 57600, 0.0, 7571.0 / 16695, 393.0 / 640, -92097.0 / 339200,
           187.0 / 2100, 1.0 / 40)
 
 
-def _rms(v: torch.Tensor) -> torch.Tensor:
-    """scipy's rms_norm: sqrt(mean |v|^2)."""
-    a = v.abs()
-    return torch.sqrt(torch.mean(a * a))
+def _rms(*vs: torch.Tensor):
+    """scipy's rms_norm, sqrt(mean |v|^2), of each of ``vs`` (one value, or a
+    tuple of them), float32. The sums of |v|^2 and the element counts are
+    float64 and, where the batch's rows are split over a group
+    (``parallel.rows``), summed over it in one all-reduce: every rank then
+    holds the global batch's norms, rounded as one device rounds them, so the
+    step control decides alike on every rank."""
+    sums = torch.stack([s for v in vs for s in (
+        v.abs().square().sum(dtype=torch.float64),
+        torch.full((), v.numel(), dtype=torch.float64, device=v.device))])
+    sums = all_sum(sums).view(-1, 2)
+    norms = torch.sqrt(sums[:, 0] / sums[:, 1]).float()
+    return norms[0] if len(vs) == 1 else tuple(norms)
 
 
 def ode_sampler(
@@ -243,7 +260,8 @@ def ode_sampler(
 
     - ``method='rk45'``: adaptive Dormand-Prince 5(4) with FSAL, scipy's
       initial-step selection and step controller (the rejection clamp
-      included), on the error norm of the whole batch. The step state (t, h,
+      included), on the error norm of the whole batch (the global one where
+      the rows are split over a group: :func:`_rms`). The step state (t, h,
       the error norm) is float32 tensors, as in the JAX ``while_loop``, so
       accept/reject decisions and the NFE match it; each step reads ``accept``
       and ``t`` to the host once. NFE = 2 + 6 per step (+1 with ``denoise``).
@@ -298,7 +316,7 @@ def _rk45(drift_fn, x, t_start: float, eps: float, rtol: float, atol: float, max
     # scipy.integrate._ivp.common.select_initial_step, direction -1, order 4:
     # one extra evaluation (the Euler probe), as in scipy.
     scale = atol + x.abs() * rtol
-    d0, d1 = _rms(x / scale), _rms(k1 / scale)
+    d0, d1 = _rms(x / scale, k1 / scale)
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6, 0.01 * d0 / d1)
     f1 = drift_fn(x - h0 * k1, t - h0)
     dm = torch.maximum(d1, _rms((f1 - k1) / scale) / h0)

@@ -1,16 +1,20 @@
-"""Evaluation metrics of the in-training evaluation: SI-SDR, STOI/ESTOI and
-PESQ (gated).
+"""Evaluation metrics: the SI-SDR family, STOI/ESTOI, PESQ (gated), and the
+statistics helpers of the result tables.
 
-The port's copy of the parts of ``sgmse_tpu/utils/metrics.py`` that training
-uses (that module cannot be imported without JAX, because importing
-``sgmse_tpu`` imports it), unchanged: ``si_sdr``, the self-contained numpy
-STOI / extended STOI (Taal et al. 2011; Jensen & Taal 2016) and ``pesq_wb``,
-which takes the ``pesq`` conformance package when it is installed and the
-built-in P.862 (``utils/p862.py``) otherwise. Plain numpy, on the host.
+The port's copy of ``sgmse_tpu/utils/metrics.py`` (that module cannot be
+imported without JAX, because importing ``sgmse_tpu`` imports it),
+unchanged: ``si_sdr`` and its components (``si_sdr_components``,
+``energy_ratios``, ``snr_dB``), ``hp_filter``, the statistics helpers
+(``mean_conf_int``, ``mean_std``, ``print_mean_std``, ``Method``,
+``print_metrics``), the self-contained numpy STOI / extended STOI (Taal et
+al. 2011; Jensen & Taal 2016) and ``pesq_wb``, which takes the ``pesq``
+conformance package when it is installed and the built-in P.862
+(``utils/p862.py``) otherwise. Plain numpy and scipy, on the host.
 """
 from __future__ import annotations
 
 import warnings
+from typing import Tuple
 
 import numpy as np
 
@@ -19,10 +23,108 @@ from ..data.wav import resample
 EPS = np.finfo(np.float64).eps
 
 
+# ---------------------------------------------------------------------------------------
+# SI-SDR family
+# ---------------------------------------------------------------------------------------
+
+def si_sdr_components(s_hat: np.ndarray, s: np.ndarray, n: np.ndarray):
+    """Project s_hat onto target / noise / artifact components."""
+    alpha_s = np.dot(s_hat, s) / (np.linalg.norm(s) ** 2)
+    s_target = alpha_s * s
+    alpha_n = np.dot(s_hat, n) / (np.linalg.norm(n) ** 2)
+    e_noise = alpha_n * n
+    e_art = s_hat - s_target - e_noise
+    return s_target, e_noise, e_art
+
+
+def energy_ratios(s_hat: np.ndarray, s: np.ndarray, n: np.ndarray
+                  ) -> Tuple[float, float, float]:
+    """(SI-SDR, SI-SIR, SI-SAR) via projection decomposition."""
+    s_target, e_noise, e_art = si_sdr_components(s_hat, s, n)
+    si_sdr_ = 10 * np.log10(np.linalg.norm(s_target) ** 2
+                            / np.linalg.norm(e_noise + e_art) ** 2)
+    si_sir = 10 * np.log10(np.linalg.norm(s_target) ** 2
+                           / np.linalg.norm(e_noise) ** 2)
+    si_sar = 10 * np.log10(np.linalg.norm(s_target) ** 2
+                           / np.linalg.norm(e_art) ** 2)
+    return si_sdr_, si_sir, si_sar
+
+
 def si_sdr(s: np.ndarray, s_hat: np.ndarray) -> float:
     alpha = np.dot(s_hat, s) / np.linalg.norm(s) ** 2
     return float(10 * np.log10(np.linalg.norm(alpha * s) ** 2
                                / np.linalg.norm(alpha * s - s_hat) ** 2))
+
+
+def snr_dB(s: np.ndarray, n: np.ndarray) -> float:
+    s_power = np.sum(s**2) / len(s)
+    n_power = np.sum(n**2) / len(n)
+    return float(10 * np.log10(s_power / n_power))
+
+
+def hp_filter(signal: np.ndarray, cut_off: float = 80, order: int = 10,
+              sr: int = 16000) -> np.ndarray:
+    from scipy.signal import butter, sosfilt
+
+    factor = cut_off / sr * 2
+    sos = butter(order, factor, "hp", output="sos")
+    return sosfilt(sos, signal)
+
+
+# ---------------------------------------------------------------------------------------
+# Statistics helpers
+# ---------------------------------------------------------------------------------------
+
+def mean_conf_int(data, confidence: float = 0.95):
+    import scipy.stats
+
+    a = 1.0 * np.array(data)
+    n = len(a)
+    m, se = np.mean(a), scipy.stats.sem(a)
+    h = se * scipy.stats.t.ppf((1 + confidence) / 2.0, n - 1)
+    return m, h
+
+
+def mean_std(data: np.ndarray):
+    data = np.asarray(data)
+    data = data[~np.isnan(data)]
+    return np.mean(data), np.std(data)
+
+
+def print_mean_std(data, decimal: int = 2) -> str:
+    mean, std = mean_std(np.array(data))
+    if decimal == 1:
+        return f"{mean:.1f} ± {std:.1f}"
+    return f"{mean:.2f} ± {std:.2f}"
+
+
+class Method:
+    """Per-method metric accumulator for result tables: collect metric values
+    per enhancement method, then report mean ± confidence interval per
+    metric."""
+
+    def __init__(self, name: str, base_dir: str, metrics):
+        self.name = name
+        self.base_dir = base_dir
+        self.metrics = {metric: [] for metric in metrics}
+
+    def append(self, metric: str, value: float) -> None:
+        self.metrics[metric].append(value)
+
+    def get_mean_ci(self, metric: str):
+        return mean_conf_int(np.array(self.metrics[metric]))
+
+
+def print_metrics(x: np.ndarray, y: np.ndarray, x_hat_list, labels,
+                  sr: int = 16000) -> None:
+    """Print PESQ/ESTOI/SI-SDR for the mixture and each enhanced estimate."""
+    print(f"Mixture:  PESQ: {pesq_wb(sr, x, y):.2f}, "
+          f"ESTOI: {stoi(x, y, sr, extended=True):.2f}, "
+          f"SI-SDR: {si_sdr(x, y):.2f}")
+    for label, x_hat in zip(labels, x_hat_list):
+        print(f"{label}: {pesq_wb(sr, x, x_hat):.2f}, "
+              f"ESTOI: {stoi(x, x_hat, sr, extended=True):.2f}, "
+              f"SI-SDR: {si_sdr(x, x_hat):.2f}")
 
 
 # ---------------------------------------------------------------------------------------

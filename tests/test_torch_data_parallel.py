@@ -13,8 +13,9 @@ test hook), and the pieces under it:
   one-device entry point writes;
 - a batch served through ``serve.build_enhancer(--data_parallel)`` equals the
   direct call on the same padded batch and generator;
-- what couples a batch's rows is refused: DCUNet's CbN, the langevin
-  corrector, the rk45 ODE solver;
+- what couples a batch's rows (DCUNet's CbN, the langevin corrector, the
+  rk45 ODE solver) reduces over the workers' group: two workers equal one
+  device on the zero-padded batch, with the same NFE;
 - processes build the kernels one at a time (``kernels.build``'s file lock).
 
 Tolerance: 1e-5 of max|out| (one device and two workers run the same float32
@@ -172,17 +173,46 @@ def test_served_batch_through_two_workers_equals_a_direct_one(model, tmp_path):
     assert not any(p.is_alive() for p in built._procs)  # closing the enhancer closed the pool
 
 
-def test_data_parallel_refuses_what_couples_rows(pool):
-    cbn = ScoreModel("dcunet", "ouve", dcunet_architecture="DCUNet-10",
-                     dcunet_norm_type="CbN", n_fft=64, hop_length=16, num_frames=16)
-    with pytest.raises(NotImplementedError, match="CbN"):
-        DataParallelModel(cbn, WORKERS)
-    y = _noisy(2)
-    with pytest.raises(NotImplementedError, match="langevin"):
-        pool.enhance(y, N=2, corrector="langevin")
-    with pytest.raises(NotImplementedError, match="rk45"):
-        pool.enhance(y, sampler_type="ode")
-    assert pool.enhance(y, sampler_type="ode", method="rk4", N=1).shape == y.shape
+@pytest.fixture(scope="module")
+def cbn_model():
+    m = ScoreModel("dcunet", "ouve", dcunet_architecture="DCUNet-10", dcunet_norm_type="CbN",
+                   n_fft=64, hop_length=16, num_frames=16)
+    m.init_params(torch.Generator().manual_seed(1))
+    return m.eval()
+
+
+COUPLED = {  # what couples a batch's rows: sampler arguments, and whether DCUNet-CbN runs them
+    "langevin": (dict(N=2, corrector="langevin"), False),
+    "rk45": (dict(sampler_type="ode", method="rk45", max_steps=2), False),
+    "cbn": (dict(N=2), True),
+}
+
+
+@pytest.mark.filterwarnings("ignore:ODE sampler hit max_steps")
+@pytest.mark.parametrize("batch", [4, 3])
+@pytest.mark.parametrize("path", sorted(COUPLED))
+def test_data_parallel_refuses_what_couples_rows(model, pool, cbn_model, path, batch):
+    """What couples a batch's rows is no longer refused: the langevin
+    corrector's batch means, rk45's norms (bounded ``max_steps``, as on a
+    random net it is stiff) and DCUNet's CbN statistics reduce over the
+    workers' group, so two workers equal one device on the zero-padded batch
+    (at B = 3 the padding row enters the statistics), with the same NFE."""
+    kw, cbn = COUPLED[path]
+    net = cbn_model if cbn else model
+    y = _noisy(batch, n=1000 if cbn else 2048, seed=10 + batch)
+    gen, ref_gen = torch.Generator().manual_seed(7), torch.Generator().manual_seed(7)
+    ref, ref_nfe, _ = net.enhance(_padded(y), generator=ref_gen, timeit=True, **kw)
+    if cbn:
+        with DataParallelModel(net, WORKERS) as dp:
+            out, nfe, _ = dp.enhance(y, generator=gen, timeit=True, **kw)
+            calls = dp.collective_counts()
+    else:
+        pool.collective_counts(reset=True)
+        out, nfe, _ = pool.enhance(y, generator=gen, timeit=True, **kw)
+        calls = pool.collective_counts()
+    _close(out, ref[:batch])
+    assert nfe == ref_nfe and torch.equal(gen.get_state(), ref_gen.get_state())
+    assert calls[0]["calls"] == calls[1]["calls"] > 0
 
 
 def test_processes_build_the_kernels_one_at_a_time(tmp_path):

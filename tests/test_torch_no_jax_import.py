@@ -25,7 +25,15 @@ def test_entry_point_imports_with_jax_blocked():
         "import sgmse_tpu_torch.kernel_times, sgmse_tpu_torch.nfe_profile\n"
         "import sgmse_tpu_torch.models.dcunet, sgmse_tpu_torch.serve\n"
         "import sgmse_tpu_torch.parallel.dist, sgmse_tpu_torch.parallel.rows\n"
-        "import sgmse_tpu_torch.parallel.pool\n"
+        "import sgmse_tpu_torch.parallel.pool, sgmse_tpu_torch.calc_metrics\n"
+        "import sgmse_tpu_torch.data.room, sgmse_tpu_torch.utils.profiling\n"
+        "import sgmse_tpu_torch.preprocessing.mixing\n"
+        "import sgmse_tpu_torch.preprocessing.create_synthetic_speech\n"
+        "import sgmse_tpu_torch.preprocessing.create_wsj0_chime3\n"
+        "import sgmse_tpu_torch.preprocessing.create_wsj0_qut\n"
+        "import sgmse_tpu_torch.preprocessing.create_wsj0_reverb\n"
+        "import sgmse_tpu_torch.tools.learn_demo, sgmse_tpu_torch.tools.bf16_quality\n"
+        "import sgmse_tpu_torch.tools.quality_vs_nfe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
