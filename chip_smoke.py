@@ -171,7 +171,27 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    counts of the run's train steps and network evaluations exact; the
    enhanced-vs-noisy deltas printed; (c) ``tools.bf16_quality`` on (b)'s
    ``best_pesq``, the 16 test files in f32 and bf16: mean and largest
-   deltas. ``--only 14`` runs phases 1-2 and 14.
+   deltas. ``--only 14`` runs phases 1-2 and 14;
+15. the dereverberation and 48 kHz learn demos (``tools.learn_demo_reverb``,
+   ``tools.learn_demo_48k``): (a) kernel against plain, f32 and bf16, with
+   phases 3 and 9a's tolerances, at every K1, K1-adjoint, K2 and K2b call
+   signature of the flagship's B=16 bfloat16 train step (the dereverb
+   recipe's; timed in bf16, launches per step asserted) and of the 48 kHz
+   demo net (``ncsnpp_48k`` at nf 32, ch_mult 1 1 2 2, one res-block per
+   level, F=768, T=256): its B=4 forward (timed in bf16; through the kernels
+   against plain, 6 K1 and 42 K2 per forward) and its B=8 train step (timed
+   in bf16; 6 K1, 6 K1 adjoints, 42 K2 and 42 K2b per step); (b) the
+   dereverb demo cut (``DEREVERB_CUT``: 32 steps of the full-width flagship
+   at B=16 in bf16 on a 256-file reverb corpus, 2 validations with 2 eval
+   files), then all 12 test files at N=50 and snr 0.33; (c) the 48 kHz demo
+   cut (``DEMO_48K_CUT``: 12 steps on 48 files, 2 validations), its 12 test
+   files at N=30, and the 22-s utterance through ``--chunk_seconds 4``;
+   each of (b) and (c) through its tool's ``main`` with the counters set to
+   0 just before and read just after: finite metrics, a validation loss that
+   falls, every batch from the native loader, the launch counts exact, the
+   NFE per batch (100 for (b), 60 for (c); 6 chunks x 60 for each of the
+   long utterance's two files); the deltas over the input printed.
+   ``--only 15`` runs phases 1-2 and 15.
 
 Each entry-point path is driven with the launch counters set to 0 just before
 it and read just after. The seconds of each phase are printed before the
@@ -265,9 +285,9 @@ DCUNET_BF16_F32_TOL = 0.1  # bf16 against f32 output on one evaluation, relative
 RK45_MAX_STEPS = 4
 # Phase 14: the learn demo's net (kernel_times.VARIANTS["learn_demo"]), its launches per
 # forward and per train step (as its dispatchers record them on the CPU), the enhancement's
-# and the training's batch, the cut recipe (about two minutes), and each validation's network
-# evaluations (the valid loss on one batch of the 16 valid files, and PC N=30 + ald on the 2
-# eval files, one batch).
+# and the training's batch, the cut recipe (about two minutes), and each validation's valid
+# batches (the valid loss on one batch of the 16 valid files; PC N=30 + ald on the 2 eval
+# files follows, one batch).
 NETS["learn_demo"] = dict(launches={"upfirdn2d": 12, "group_norm_act": 45}, silu_split=[44, 1],
                           pre_bias=20, params=1_377_050, k6=0)
 DEMO_TRAIN_LAUNCHES = {"upfirdn2d": 12, "upfirdn2d_adjoint": 9, "group_norm_act": 45,
@@ -275,7 +295,25 @@ DEMO_TRAIN_LAUNCHES = {"upfirdn2d": 12, "upfirdn2d_adjoint": 9, "group_norm_act"
 DEMO_ENHANCE_B, DEMO_TRAIN_B = 8, 16
 DEMO_CUT = ["--num_train", "1024", "--max_steps", "320", "--num_eval_files", "2",
             "--no_profile"]
-DEMO_VALIDATION_FORWARDS = 1 + EVAL_NFE
+DEMO_VALID_BATCHES = 1
+# Phase 15: the dereverb recipe trains the flagship at B=16 in bfloat16 (its launches per
+# step are TRAIN_LAUNCHES); the 48 kHz demo net (kernel_times.VARIANTS["demo_48k"]), its
+# launches per forward and per train step (as its dispatchers record them on the CPU), its
+# enhancement's and training's batch; the cut recipes (2 validations each: an epoch is 16
+# steps of 256 files at B=16, 6 of 48 at B=8), the valid batches of each validation (12
+# valid files), the NFE of an enhanced batch (PC + ald at N=50 and N=30) and the chunks of
+# the 22-s utterance (4-s chunks, 10% overlap).
+DEREVERB_TRAIN_B, DEREVERB_VALID_BATCHES, DEREVERB_NFE = 16, 1, 100
+DEREVERB_CUT = ["--num_train", "256", "--max_steps", "32", "--num_eval_files", "2",
+                "--no_profile"]
+NETS["demo_48k"] = dict(launches={"upfirdn2d": 6, "group_norm_act": 42}, silu_split=[41, 1],
+                        pre_bias=20, params=1_370_318, k6=0)
+DEMO_48K_TRAIN_LAUNCHES = {"upfirdn2d": 6, "upfirdn2d_adjoint": 6, "group_norm_act": 42,
+                           "group_norm_act_bwd": 42}
+DEMO_48K_ENHANCE_B, DEMO_48K_TRAIN_B, DEMO_48K_VALID_BATCHES, DEMO_48K_NFE = 4, 8, 2, 60
+DEMO_48K_CUT = ["--num_train", "48", "--max_steps", "12", "--num_eval_files", "2",
+                "--no_profile"]
+LONG_CHUNKS = 6
 # Phase 11, serving: the flags of python -m sgmse_tpu_torch.serve (--max_seconds and
 # --chunk_seconds cut from 30 and 10 s, so that a 6-s request takes the long path in a short
 # phase), the NFE of a batch (PC N=30 + ald), the served batch against model.enhance of the
@@ -476,28 +514,27 @@ def network_checks(backbone, dev, report, batch=B):
     return model, rows
 
 
-def summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path,
-              demo_train_rows=()):
+def summarize(rows, train_rows, bridge_rows, launches_by_path, step_rows):
     """The kernels line: K1 and K2 per network evaluation of the flagship
     (bf16 device times, B=4), the backward kernels per train step (float32,
     B=8); every kernel's per-train-step sums also under ``per_train_step``,
     those of the bridge's B=16 step under ``per_bridge_train_step``, those of
-    phase 12's and 14's nets per evaluation under ``per_nfe_<net>``, those of
-    the 48 kHz residual net's B=8 step under ``per_48k_residual_train_step``
-    and those of the learn demo's B=16 step under
-    ``per_learn_demo_train_step``."""
+    phase 12's, 14's and 15's nets per evaluation under ``per_nfe_<net>``, and
+    those of each train step of ``step_rows`` ({name: its kernel rows}: the
+    48 kHz residual net's B=8 step, the learn demo's B=16 step, the dereverb
+    recipe's B=16 bf16 flagship step, the 48 kHz demo's B=8 step) under
+    ``per_<name>_train_step``."""
     from sgmse_tpu_torch import kernel_times as kt
 
     sums = {bb: kt.per_nfe([r for r in rows if "ms" in r and r["backbone"] == bb])
             for bb in NETS}
     train_sums = kt.per_nfe([r for r in train_rows if "ms" in r])
     bridge_sums = kt.per_nfe([r for r in bridge_rows if "ms" in r])
-    residual_sums = kt.per_nfe([r for r in residual_train_rows if "ms" in r])
-    demo_sums = kt.per_nfe([r for r in demo_train_rows if "ms" in r])
+    step_sums = {k: kt.per_nfe([r for r in v if "ms" in r]) for k, v in step_rows.items()}
+    every_row = rows + train_rows + bridge_rows + [r for v in step_rows.values() for r in v]
     out = []
     for name in REPLACES:
-        mine = [r for r in rows + train_rows + bridge_rows + residual_train_rows
-                + list(demo_train_rows) if r["name"] == name]
+        mine = [r for r in every_row if r["name"] == name]
         source, replaces = REPLACES[name]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -517,16 +554,14 @@ def summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_pa
                                       if k != "library_note"})
         else:  # per train step
             entry.update(per_step)
-        for net in ("48k_residual", "ncsnpp_variant", "learn_demo"):
+        for net in ("48k_residual", "ncsnpp_variant", "learn_demo", "demo_48k"):
             if name in sums[net]:
                 entry[f"per_nfe_{net}"] = {k: v for k, v in sums[net][name].items()
                                            if k != "library_note"}
-        if name in residual_sums:
-            entry["per_48k_residual_train_step"] = {
-                k: v for k, v in residual_sums[name].items() if k != "library_note"}
-        if name in demo_sums:
-            entry["per_learn_demo_train_step"] = {
-                k: v for k, v in demo_sums[name].items() if k != "library_note"}
+        for step, by_name in step_sums.items():
+            if name in by_name:
+                entry[f"per_{step}_train_step"] = {k: v for k, v in by_name[name].items()
+                                                   if k != "library_note"}
         out.append(entry)
     return out
 
@@ -548,16 +583,18 @@ def check_outputs(what, name, got, ref):
 
 
 def train_kernel_checks(dev, report, backbone="ncsnpp", batch=TRAIN_B, tag="train",
-                        launches=TRAIN_LAUNCHES):
-    """Phases 9a, 10b and 12a: every kernel call signature of a full-width
-    train step of ``backbone`` (or of a kernel_times.VARIANTS name) at
-    ``batch``, kernel vs plain in float32 and bfloat16, bit-for-bit repeats of
-    K2 and K2b, the library yardsticks, and float32 device times."""
+                        launches=TRAIN_LAUNCHES, precision="float32"):
+    """Phases 9a, 10b, 12a, 14a and 15a: every kernel call signature of a
+    full-width train step of ``backbone`` (or of a kernel_times.VARIANTS name)
+    at ``batch`` in ``precision``, kernel vs plain in float32 and bfloat16,
+    bit-for-bit repeats of K2 and K2b, the library yardsticks, and device
+    times in ``precision``."""
     import torch
     from sgmse_tpu_torch import kernel_times as kt
 
+    timed = getattr(torch, precision)
     arch, settings = kt.VARIANTS.get(backbone, (backbone, {}))
-    model = kt.full_model(dev, backbone=arch, **settings)
+    model = kt.full_model(dev, precision=precision, backbone=arch, **settings)
     reset_counters()
     fwd, bwd = kt.record_train_calls(model, dev, batch,  # through the kernels
                                      f_bins=kt.BINS.get(arch, kt.F_BINS))
@@ -586,7 +623,7 @@ def train_kernel_checks(dev, report, backbone="ncsnpp", batch=TRAIN_B, tag="trai
             if "library" in case:
                 row["library_err"], _ = check_outputs(f"{what} library", name,
                                                       case["library"](), case["library_ref"]())
-            if dtype == torch.float32:  # the training dtype of the JAX defaults
+            if dtype == timed:  # the step's own dtype (the JAX defaults': float32)
                 times = kt.time_case(case)
                 row.update({k: times[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                   "bound_by", "bytes", "ops")})
@@ -595,11 +632,12 @@ def train_kernel_checks(dev, report, backbone="ncsnpp", batch=TRAIN_B, tag="trai
         torch.cuda.empty_cache()
     sums = kt.per_nfe([r for r in rows if "ms" in r])
     print(f"{tag} kernel checks: {len(rows)} passed over {len(counts)} call signatures of a "
-          f"B={batch} {backbone} train step (f32, bf16; K2 and K2b repeat bit for bit; "
-          f"yardsticks agree), launches per step {moved}")
+          f"B={batch} {backbone} {precision} train step (f32, bf16; K2 and K2b repeat bit for "
+          f"bit; yardsticks agree), launches per step {moved}")
     for name, v in sums.items():
         lib = "-" if v["library_ms"] is None else f"{v['library_ms']:.3f}"
-        print(f"  {name:18s} x{v['launches_per_nfe']} per step: f32 device {v['ms']:.3f} ms, "
+        print(f"  {name:18s} x{v['launches_per_nfe']} per step: {precision} device "
+              f"{v['ms']:.3f} ms, "
               f"plain {v['plain_ms']:.3f}, library {lib}, bound {v['bound_ms']:.3f} "
               f"({v['bound_by']})")
     for r in rows:
@@ -2138,44 +2176,64 @@ def phase_13(tmp: Path, report, launches_by_path, dev, lap):
     print(ONE_CARD_LIMITS)
 
 
-def learn_demo_cut(tmp: Path, report, launches_by_path):
-    """Phase 14b: the learn demo cut to DEMO_CUT through ``tools.learn_demo``,
-    with the counters set to 0 just before and read just after. Returns its
-    result (its ``workdir`` holds the corpus and the checkpoints)."""
+def demo_cut(what, tag, run, per_step, per_forward, valid_batches, report, launches_by_path):
+    """Phases 14b, 15b and 15c: a learn demo cut short through its tool's
+    ``main`` (``run``; its launches and result go under ``tag``), with
+    PyTorch's default cuDNN TF32 and the counters set to 0 just before and
+    read just after: finite metrics, a validation loss
+    that falls from the first validation to the last, every training and
+    validation batch (``valid_batches`` per validation) from the native
+    loader, and the launch counts exact: ``per_step`` per train step and
+    ``per_forward`` per network evaluation (each validation's valid batches
+    and its PC N=30 + ald on one batch of eval files; every enhancement's NFE
+    and warm-up NFE). Returns the tool's result."""
     import torch
     from sgmse_tpu_torch.data import native
-    from sgmse_tpu_torch.tools import learn_demo
 
-    print(f"14b learn demo, cut: {' '.join(DEMO_CUT)} (the full recipe: 3,200 steps, 8 eval "
-          f"files, 50 validations; python -m sgmse_tpu_torch.tools.learn_demo)")
     torch.cuda.synchronize()
     reset_counters()
     served = dict(native.SERVED)
     with cudnn_tf32():
-        r = learn_demo.main([str(tmp / "learn_demo"), *DEMO_CUT])
+        r = run()
     torch.cuda.synchronize()
     launches = counters()
     served = {k: v - served[k] for k, v in native.SERVED.items()}
     journey = r["validations"]
-    forwards = (len(journey) * DEMO_VALIDATION_FORWARDS + r["enhance_warmup_nfe"]
-                + r["enhance_nfe"])
-    expected = add(expect(DEMO_TRAIN_LAUNCHES, r["steps"]),
-                   expect(NETS["learn_demo"]["launches"], forwards))
+    groups = [r] + ([r["long"]] if "long" in r else [])
+    enhance_nfe = sum(g["enhance_nfe"] + g["enhance_warmup_nfe"] for g in groups)
+    forwards = len(journey) * (valid_batches + EVAL_NFE) + enhance_nfe
+    expected = add(expect(per_step, r["steps"]), expect(per_forward, forwards))
     losses = [v["valid_loss"] for v in journey]
-    finite = all(np.isfinite(v) for g in ("noisy", "enhanced", "delta") for v in r[g].values())
-    print(f"14b: {r['steps']} steps, {len(journey)} validations (valid_loss "
-          f"{[round(v, 4) for v in losses]}), best_pesq at step {r['best_pesq_step']}; noisy "
+    finite = all(np.isfinite(v) for g in groups for k in ("noisy", "enhanced", "delta")
+                 for v in g[k].values())
+    print(f"{what}: {r['steps']} steps, {len(journey)} validations (valid_loss "
+          f"{[round(v, 4) for v in losses]}), best_pesq at step {r['best_pesq_step']}; input "
           f"{r['noisy']}, enhanced {r['enhanced']}, delta {r['delta']}; "
           f"{r['train_steps_per_s']:.2f} steps/s with validation, enhancement "
           f"{r['enhance_audio_s_per_wall_s']:.2f} audio-s/wall-s; launches {launches} "
           f"(expected {expected}: {r['steps']} steps, {forwards} evaluations); batches served "
           f"{served}")
     if (launches != expected or not finite or len(losses) < 2 or not losses[-1] < losses[0]
-            or served != {"native": r["steps"] + len(journey), "python": 0}):
-        raise AssertionError(f"14b: launches {launches} (expected {expected}), finite {finite}, "
-                             f"valid losses {losses}, batches served {served}")
-    launches_by_path["learn_demo"] = launches
-    report["learn_demo_cut"] = dict(r, launches=launches, batches_served=served)
+            or served != {"native": r["steps"] + len(journey) * valid_batches, "python": 0}):
+        raise AssertionError(f"{what}: launches {launches} (expected {expected}), finite "
+                             f"{finite}, valid losses {losses}, batches served {served}")
+    launches_by_path[tag] = launches
+    report[f"{tag}_cut"] = dict(r, launches=launches, batches_served=served)
+    return r
+
+
+def learn_demo_cut(tmp: Path, report, launches_by_path):
+    """Phase 14b: the learn demo cut to DEMO_CUT through ``tools.learn_demo``.
+    Returns its result (its ``workdir`` holds the corpus and the
+    checkpoints)."""
+    from sgmse_tpu_torch.tools import learn_demo
+
+    print(f"14b learn demo, cut: {' '.join(DEMO_CUT)} (the full recipe: 3,200 steps, 8 eval "
+          f"files, 50 validations; python -m sgmse_tpu_torch.tools.learn_demo)")
+    r = demo_cut("14b", "learn_demo", lambda: learn_demo.main([str(tmp / "learn_demo"),
+                                                               *DEMO_CUT]),
+                 DEMO_TRAIN_LAUNCHES, NETS["learn_demo"]["launches"],
+                 DEMO_VALID_BATCHES, report, launches_by_path)
     return r
 
 
@@ -2209,6 +2267,56 @@ def phase_14(tmp: Path, report, launches_by_path, dev, lap):
     return rows, train_rows
 
 
+def phase_15(tmp: Path, report, launches_by_path, dev, lap):
+    """Phase 15: the kernel signatures of the dereverb recipe's B=16 bf16
+    flagship step and of the 48 kHz demo net (15a), then the two demos cut
+    short (15b, 15c). Returns the 48 kHz demo net's forward rows and
+    {name: rows} of the two train steps."""
+    import torch
+    from sgmse_tpu_torch.data.wav import read_wav
+    from sgmse_tpu_torch.tools import learn_demo_48k, learn_demo_reverb
+
+    step_rows = {"dereverb": train_kernel_checks(dev, report, "ncsnpp", DEREVERB_TRAIN_B,
+                                                 "dereverb_train", TRAIN_LAUNCHES, "bfloat16")}
+    model, rows = network_checks("demo_48k", dev, report, batch=DEMO_48K_ENHANCE_B)
+    del model
+    torch.cuda.empty_cache()
+    step_rows["demo_48k"] = train_kernel_checks(dev, report, "demo_48k", DEMO_48K_TRAIN_B,
+                                                "demo_48k_train", DEMO_48K_TRAIN_LAUNCHES,
+                                                "bfloat16")
+    lap("15a dereverb and 48 kHz demo kernels")
+
+    print(f"15b dereverb demo, cut: {' '.join(DEREVERB_CUT)} (the full recipe: 2,500 steps, 6 "
+          f"eval files, 53 validations; python -m sgmse_tpu_torch.tools.learn_demo_reverb)")
+    r = demo_cut("15b", "dereverb_demo", lambda: learn_demo_reverb.main(
+        [str(tmp / "dereverb_demo"), *DEREVERB_CUT]), TRAIN_LAUNCHES, NETS["ncsnpp"]["launches"],
+        DEREVERB_VALID_BATCHES, report, launches_by_path)
+    if r["test_files"] != 12 or r["enhance_nfe"] != DEREVERB_NFE * r["enhance_batches"]:
+        raise AssertionError(f"15b: {r['test_files']} test files, NFE {r['enhance_nfe']} in "
+                             f"{r['enhance_batches']} batches")
+    lap("15b dereverb demo, cut")
+
+    print(f"15c 48 kHz demo, cut: {' '.join(DEMO_48K_CUT)} (the full recipe: 768 files, 3,000 "
+          f"steps, 6 eval files, 32 validations; python -m sgmse_tpu_torch.tools.learn_demo_48k)")
+    r = demo_cut("15c", "demo_48k", lambda: learn_demo_48k.main(
+        [str(tmp / "demo_48k"), *DEMO_48K_CUT]), DEMO_48K_TRAIN_LAUNCHES,
+        NETS["demo_48k"]["launches"], DEMO_48K_VALID_BATCHES, report, launches_by_path)
+    lg = r["long"]
+    out, sr = read_wav(Path(r["workdir"]) / "long_enh" / "long0.wav")
+    print(f"15c long utterance: {lg['seconds']:g} s in {lg['chunk_seconds']:g}-s chunks, "
+          f"{lg['files']} files, NFE {lg['enhance_nfe']} (+{lg['enhance_warmup_nfe']}), "
+          f"{lg['audio_s_per_wall_s']:.2f} audio-s/wall-s; input {lg['noisy']}, enhanced "
+          f"{lg['enhanced']}, delta {lg['delta']}")
+    if (r["test_files"] != 12 or r["enhance_nfe"] != DEMO_48K_NFE * r["enhance_batches"]
+            or lg["enhance_nfe"] != lg["files"] * LONG_CHUNKS * DEMO_48K_NFE or sr != 48000
+            or out.shape != (1, 22 * 48000) or not np.isfinite(out).all()):
+        raise AssertionError(f"15c: {r['test_files']} test files, NFE {r['enhance_nfe']} in "
+                             f"{r['enhance_batches']} batches; long NFE {lg['enhance_nfe']} over "
+                             f"{lg['files']} files, output {out.shape} at {sr} Hz")
+    lap("15c 48 kHz demo, cut")
+    return rows, step_rows
+
+
 def phase_12(tmp: Path, report, launches_by_path, dev, lap):
     """Phase 12: 12a-c (``residual_checks``), then 12d (``dcunet_checks``).
     Returns the kernel rows and the residual net's train kernel rows."""
@@ -2224,7 +2332,7 @@ def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
-    parser.add_argument("--only", choices=("12", "13", "14"), default=None,
+    parser.add_argument("--only", choices=("12", "13", "14", "15"), default=None,
                         help="run phases 1-2 and this phase only, and print no contract lines "
                              "(a quicker check of one phase)")
     only = parser.parse_args(argv).only
@@ -2265,8 +2373,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         if only is not None:
-            {"12": phase_12, "13": phase_13, "14": phase_14}[only](tmp, report, launches_by_path,
-                                                                   dev, lap)
+            {"12": phase_12, "13": phase_13, "14": phase_14,
+             "15": phase_15}[only](tmp, report, launches_by_path, dev, lap)
             print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
             (OUT_DIR / f"chip_smoke_{only}.json").write_text(json.dumps(report, indent=1,
                                                                         default=str))
@@ -2421,8 +2529,15 @@ def main(argv=None):
         rows += demo_rows
         print(f"phase 14: {time.time() - t14:.1f} s")
 
-    summary = summarize(rows, train_rows, bridge_rows, residual_train_rows, launches_by_path,
-                        demo_train_rows)
+        # --- 15. the dereverberation and 48 kHz learn demos ------------------------------
+        t15 = time.time()
+        demo_48k_rows, step_rows = phase_15(tmp, report, launches_by_path, dev, lap)
+        rows += demo_48k_rows
+        print(f"phase 15: {time.time() - t15:.1f} s")
+
+    summary = summarize(rows, train_rows, bridge_rows, launches_by_path,
+                        {"48k_residual": residual_train_rows, "learn_demo": demo_train_rows,
+                         **step_rows})
     report["kernels"], report["phase_s"] = summary, phases
     print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

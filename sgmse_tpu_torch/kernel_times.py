@@ -27,8 +27,9 @@ signature's calls per evaluation. ``--variant`` takes the calls of one of the
 conv) makes K1 calls at up = down = 1 (yardstick: cuDNN's stride-1
 depthwise convolution), or the full-width ``ncsnpp`` with DDPM blocks, ``cat``
 combine, no FIR and elu, whose K2 calls run without SiLU, or the learn
-demo's narrow net (``learn_demo``). With ``--train`` the calls are those of
-one train step of the flagship (or of ``--variant``) at the JAX defaults
+demos' narrow nets (``learn_demo`` at 16 kHz, ``demo_48k`` at 48 kHz). With
+``--train`` the calls are those of one train step of the flagship (or of
+``--variant``) at the JAX defaults
 (B=8, F=T=256, float32, remat off; ``--batch`` sets another batch), forward
 and backward: K1 and K2 forward, the K1 adjoint
 (``upfirdn2d_adjoint``, yardstick cuDNN's depthwise convolution
@@ -67,6 +68,8 @@ VARIANTS = {
                                       fir=False, nonlinearity="elu")),
     # The learn demo's net (tools/learn_demo.py): narrow and shallow, full input size.
     "learn_demo": ("ncsnpp", dict(nf=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1)),
+    # The 48 kHz learn demo's net (tools/learn_demo_48k.py): the same widths at F=768.
+    "demo_48k": ("ncsnpp_48k", dict(nf=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1)),
 }
 SEED = 0
 REPS = 25
@@ -507,8 +510,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--variant", choices=sorted(VARIANTS), default=None,
                         help="time the call signatures of this NCSN++ variant instead "
                              "(48k_residual: K1 at the K6 signatures; ncsnpp_variant: K2 "
-                             "without SiLU; learn_demo: the learn demo's net), with --train "
-                             "those of its train step")
+                             "without SiLU; learn_demo, demo_48k: the learn demos' nets), "
+                             "with --train those of its train step")
     parser.add_argument("--k6", action="store_true",
                         help="with --variant 48k_residual: time K6 (FIR + conv) itself at each "
                              "of its call signatures, beside one cuDNN call with the FIR folded "

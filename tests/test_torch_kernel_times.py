@@ -124,6 +124,8 @@ def test_per_nfe_sums_each_signature_times_its_calls():
     ("ncsnpp_48k", 768, {"upfirdn2d": 12, "group_norm_act": 100}, [99, 1], 49),
     ("48k_residual", 768, {"upfirdn2d": 24, "group_norm_act": 101}, [100, 1], 49),
     ("ncsnpp_variant", 256, {"upfirdn2d": 0, "group_norm_act": 85}, [0, 85], 37),
+    ("learn_demo", 256, {"upfirdn2d": 12, "group_norm_act": 45}, [44, 1], 20),
+    ("demo_48k", 768, {"upfirdn2d": 6, "group_norm_act": 42}, [41, 1], 20),
 ])
 def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward, silu_split,
                                                    pre_bias):
@@ -132,9 +134,12 @@ def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward
     the middle block's attention, whose norm has no SiLU; with residual
     pyramids (``kt.VARIANTS``) it adds 12 K6 FIR passes (K1 at up = down = 1,
     6 down, 6 up) and the top pyramid norm. The ``ncsnpp`` variant (DDPM
-    blocks, no FIR, elu) calls no K1, and K2 always without SiLU."""
+    blocks, no FIR, elu) calls no K1, and K2 always without SiLU. The learn
+    demos' nets (nf 32, four levels of one res-block) make a quarter of the
+    res-block pairs' calls, the 16 kHz one with its pyramids."""
     backbone, settings = kt.VARIANTS.get(backbone, (backbone, {}))
-    model = ScoreModel(backbone, "ouve", nf=8, init_scale=1.0, **settings).dnn.eval()
+    model = ScoreModel(backbone, "ouve", init_scale=1.0, **dict(dict(nf=8), **settings))
+    model = model.dnn.eval()
     x = torch.zeros(1, 1, f_bins, 64, dtype=torch.complex64)
     with torch.inference_mode(), kt.routed(calls=[], plain=True) as calls:
         model(x, x, torch.full((1,), 0.5))
@@ -174,6 +179,23 @@ def test_train_signatures_are_the_flagship_training_calls():
         want.append(((*shape[:2], *out_hw), kw["up"], kw["down"], kw["pad"],
                      tuple(float(v) for v in k.ravel()), n))
     assert sorted(s for _, s in bwd if _ == "upfirdn2d_adjoint") == sorted(want)
+
+
+@pytest.mark.parametrize("variant,f_bins,per_step", [
+    ("learn_demo", 256, {"group_norm_act": 45, "upfirdn2d": 12, "group_norm_act_bwd": 45,
+                         "upfirdn2d_adjoint": 9}),
+    ("demo_48k", 768, {"group_norm_act": 42, "upfirdn2d": 6, "group_norm_act_bwd": 42,
+                       "upfirdn2d_adjoint": 6}),
+])
+def test_train_calls_of_the_learn_demo_nets(variant, f_bins, per_step):
+    """The launches per train step chip_smoke.py expects of the demos' nets
+    (phases 14a and 15a): the 16 kHz net's adjoints are its 6 res-block
+    pairs' and 3 output-pyramid upsamplings', the 48 kHz net (no pyramids)
+    has its 6 pairs' alone."""
+    backbone, settings = kt.VARIANTS[variant]
+    model = ScoreModel(backbone, "ouve", init_scale=1.0, **settings)
+    fwd, bwd = kt.record_train_calls(model, CPU, batch=1, f_bins=f_bins, frames=64)
+    assert {k: sum(1 for n, _ in fwd + bwd if n == k) for k in per_step} == per_step
 
 
 @pytest.mark.parametrize("sig", [((2, 16, 8, 12), 2, 1, (2, 1), DOWN_TAPS, 2),  # adjoint of down

@@ -55,7 +55,7 @@ def test_learn_demo_runs_end_to_end(demo):
     for group in ("noisy", "enhanced", "delta"):
         assert all(math.isfinite(v) for v in demo[group].values()), group
     assert demo["enhance_nfe"] == 4  # one batch of 2 files, N = 2 with ald
-    assert set(demo["stages"]) >= {"corpus_s", "train_s", "enhance_s", "calc_metrics_s"}
+    assert set(demo["stages"]) >= {"corpus_s", "train_s", "enhance_s", "scores_s", "baseline_s"}
     assert "train_profile" not in demo  # the card only
 
 

@@ -108,6 +108,24 @@ def test_enhance_long_sb_ode_matches_jax(sb_pair):
     assert _rel(got, ref) <= 1e-3
 
 
+def test_enhance_long_48k_pc_matches_jax():
+    """PC at 48 kHz with corrector none over three chunks, crossfaded: the same
+    (N+1, 1, 1, F, T) prior and step noise injected into every chunk on both
+    sides (both packages pass it through to ``enhance``)."""
+    port, jmodel, variables = _pair("ncsnpp_48k", "ouve", K48, seed=9)
+    n, y = 3, _waves(1, 11, n=2500)[0]
+    rng = np.random.default_rng(12)
+    shape = (n + 1, 1, 1, 64, 64)
+    z = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(2)
+         ).astype(np.complex64)
+    _, pad = target_sr_and_pad("ncsnpp_48k")
+    kw = dict(chunk_seconds=L / port.sr, corrector="none", N=n, prior_noise=z, pad_mode=pad)
+    ref = np.asarray(jmodel.enhance_long(variables, y, **kw))
+    got, nfe, _ = port.enhance_long(y, timeit=True, **kw)
+    assert got.shape == (2500,) and nfe == 3 * n
+    assert _rel(got, ref) <= 1e-3
+
+
 def test_48k_pc_enhance_matches_jax():
     """PC with corrector none and the (N+1, B, 1, F, T) prior and step noise
     injected on both sides."""

@@ -34,6 +34,7 @@ def test_entry_point_imports_with_jax_blocked():
         "import sgmse_tpu_torch.preprocessing.create_wsj0_reverb\n"
         "import sgmse_tpu_torch.tools.learn_demo, sgmse_tpu_torch.tools.bf16_quality\n"
         "import sgmse_tpu_torch.tools.quality_vs_nfe\n"
+        "import sgmse_tpu_torch.tools.learn_demo_reverb, sgmse_tpu_torch.tools.learn_demo_48k\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"

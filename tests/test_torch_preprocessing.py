@@ -1,7 +1,8 @@
 """The port's corpus scripts and room simulation (``sgmse_tpu_torch.preprocessing``,
 ``sgmse_tpu_torch.data.room``) against the JAX package's:
 
-- ``create_synthetic_speech`` at 4/2/2 files of 0.5 s, seed 7: the wavs of
+- ``create_synthetic_speech`` at 4/2/2 files of 0.5 s, at 16 kHz with seed 7
+  and at 48 kHz with seed 9 (the learn demos' corpora): the wavs of
   ``python -m sgmse_tpu_torch.preprocessing.create_synthetic_speech`` are
   byte-identical to those of ``preprocessing/create_synthetic_speech.py``;
 - ``room``: ``inverse_sabine``, ``shoebox_rir``, ``simulate`` and
@@ -37,9 +38,10 @@ def _run(argv, timeout=300):
     return res
 
 
-def test_synthetic_speech_is_byte_identical_to_jax(tmp_path):
+@pytest.mark.parametrize("sr,seed", [(16000, 7), (48000, 9)])  # the 16 and 48 kHz demos'
+def test_synthetic_speech_is_byte_identical_to_jax(tmp_path, sr, seed):
     flags = ["--num_train", "4", "--num_valid", "2", "--num_test", "2", "--seconds", "0.5",
-             "--seed", "7"]
+             "--sr", str(sr), "--seed", str(seed)]
     _run([REPO / "preprocessing" / "create_synthetic_speech.py", tmp_path / "jax", *flags])
     _run(["-m", "sgmse_tpu_torch.preprocessing.create_synthetic_speech", tmp_path / "port",
           *flags])
