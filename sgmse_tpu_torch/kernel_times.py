@@ -24,10 +24,10 @@ times:
 Per network evaluation, each is the sum over signatures of its time times the
 signature's calls per evaluation. ``--variant`` takes the calls of one of the
 ``VARIANTS`` instead: the 48 kHz net with residual pyramids, whose K6 (FIR +
-conv) makes K1 calls at up = down = 1 (yardstick: cuDNN's stride-1
-depthwise convolution), or the full-width ``ncsnpp`` with DDPM blocks, ``cat``
-combine, no FIR and elu, whose K2 calls run without SiLU, or the learn
-demos' narrow nets (``learn_demo`` at 16 kHz, ``demo_48k`` at 48 kHz). With
+conv + bias, ``fir_conv``; yardstick: one cuDNN call with the FIR folded into
+6x6 weights) runs in each pyramid level, or the full-width ``ncsnpp`` with
+DDPM blocks, ``cat`` combine, no FIR and elu, whose K2 calls run without
+SiLU, or the learn demos' narrow nets (``learn_demo`` at 16 kHz, ``demo_48k`` at 48 kHz). With
 ``--train`` the calls are those of one train step of the flagship (or of
 ``--variant``) at the JAX defaults
 (B=8, F=T=256, float32, remat off; ``--batch`` sets another batch), forward
@@ -60,7 +60,7 @@ TRAIN_B = 8  # the JAX training CLI's default batch
 # Frequency bins of each backbone's full-width input: n_fft 510 at 16 kHz, 1534 at 48 kHz.
 BINS = {"ncsnpp": F_BINS, "ncsnpp_48k": 768}
 # The NCSN++ branches beyond the flagship's, at full width: (backbone, settings). The 48 kHz
-# net with residual pyramids runs K6 (cuDNN + K1 at up = down = 1) in each pyramid level;
+# net with residual pyramids runs K6 (FIR + conv + bias, one launch) in each pyramid level;
 # the variant runs K2 without SiLU (elu after it) and no K1 (no FIR).
 VARIANTS = {
     "48k_residual": ("ncsnpp_48k", dict(progressive="residual", progressive_input="residual")),
@@ -73,9 +73,15 @@ VARIANTS = {
 }
 SEED = 0
 REPS = 25
+# --k6 in bf16, relative to max|plain|: the kernel a few bf16 steps (the plain version
+# rounds three times, the kernel twice; chip_smoke.TOL says where the limit sits between
+# the kernel's readings and the planted faults'); the folded call a few (its 6x6 weights
+# are rounded to bf16).
+K6_TOL, K6_LIBRARY_TOL = 2.0**-5, 2.0**-6
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bfloat16 on the tensor cores (K6's convolution)
+PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 on the tensor cores
 K2_LIBRARY_NOTE = ("F.group_norm: the same function on the calls without SiLU and "
                    "pre-bias; on the others it computes GN only (no one-call "
                    "equivalent with SiLU or the pre-bias)")
@@ -86,15 +92,16 @@ K1_ADJOINT_LIBRARY_NOTE = ("depthwise cuDNN backward-input (aten.convolution_bac
                            "input mask only) of the K1 yardstick's convolution; one call "
                            "per tensor of a pair")
 K6_LIBRARY_NOTE = ("depthwise cuDNN at stride 1: F.conv2d(padding p, groups C) with the "
-                   "flipped FIR for a K6 FIR pass (up = down = 1, pads (p, p)); its "
-                   "backward-input for the adjoint")
+                   "flipped FIR for K6's FIR at up = down = 1 (pads (p, p); the down "
+                   "backward's recompute); its backward-input for the adjoint")
 K6_FOLDED_NOTE = ("one cuDNN call with the FIR folded into the weights: the 6x6 kernel "
-                  "w * k at stride 2, padding 2 (F.conv_transpose2d up, F.conv2d down)")
+                  "w * k at stride 2, padding 2 (F.conv_transpose2d up, F.conv2d down), "
+                  "then the bias add")
 K2B_LIBRARY_NOTE = ("aten.native_group_norm_backward on NCHW copies: GroupNorm only (no "
                     "SiLU, no pre-bias), dx, dgamma and dbeta")
 LIBRARY_NOTES = {"upfirdn2d": K1_LIBRARY_NOTE, "upfirdn2d_adjoint": K1_ADJOINT_LIBRARY_NOTE,
                  "group_norm_act": K2_LIBRARY_NOTE, "group_norm_act_bwd": K2B_LIBRARY_NOTE,
-                 "k6_fir_conv": K6_FOLDED_NOTE}
+                 "fir_conv": K6_FOLDED_NOTE}
 
 
 def ops_modules():
@@ -107,14 +114,19 @@ def ops_modules():
 def routed(calls=None, plain=False):
     """Route the network's kernel dispatchers through a recorder of their call
     signatures (appended to ``calls``) and, with ``plain``, to the plain
-    versions (autograd then differentiates the plain versions). The backward
-    dispatchers are recorded too: K2b as ``group_norm_act_bwd``, the K1
-    adjoint as an ``upfirdn2d`` call after the forward's. Works for checkouts
-    with and without the pair launch, the pre-bias and the backward kernels."""
+    versions (autograd then differentiates the plain versions, K6 with its
+    own backward). The backward dispatchers are recorded too: K2b as
+    ``group_norm_act_bwd``, the K1 adjoint as ``upfirdn2d_adjoint`` (a K1
+    launch in a backward that computes a forward, K6 down's recompute of
+    FIR(x), as ``upfirdn2d``). K6 is ``fir_conv``, with the signature
+    ``("up" | "down", x shape, w shape, 1-D FIR taps, factor, gain, bias?)``.
+    Works for checkouts with and without the pair launch, the pre-bias, the
+    backward kernels and K6's kernel."""
     gn, ufd = ops_modules()
     orig = {"gn": gn.group_norm_act, "u": ufd.upfirdn2d,
             "pair": getattr(ufd, "upfirdn2d_pair", None),
-            "bwd": getattr(gn, "group_norm_act_bwd", None)}
+            "bwd": getattr(gn, "group_norm_act_bwd", None),
+            "k6": getattr(ufd, "fir_conv", None)}
 
     def taps(kernel):
         return tuple(float(v) for v in np.asarray(kernel, np.float32).ravel())
@@ -127,16 +139,21 @@ def routed(calls=None, plain=False):
         args = (x, gamma, beta, num_groups, eps, silu)
         return fn(*args) if pre_bias is None else fn(*args, pre_bias)
 
+    def k1_name(adjoint):
+        return "upfirdn2d_adjoint" if adjoint.get("adjoint") else "upfirdn2d"
+
     def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0), **adjoint):
         if calls is not None:
-            calls.append(("upfirdn2d", (tuple(x.shape), up, down, tuple(pad), taps(kernel), 1)))
+            calls.append((k1_name(adjoint), (tuple(x.shape), up, down, tuple(pad),
+                                             taps(kernel), 1)))
         if plain:
             return ufd.upfirdn2d_plain(x, kernel, up, down, pad)
         return orig["u"](x, kernel, up, down, pad, **adjoint)
 
     def upfirdn2d_pair(x0, x1, kernel, up=1, down=1, pad=(0, 0), **adjoint):
         if calls is not None:
-            calls.append(("upfirdn2d", (tuple(x0.shape), up, down, tuple(pad), taps(kernel), 2)))
+            calls.append((k1_name(adjoint), (tuple(x0.shape), up, down, tuple(pad),
+                                             taps(kernel), 2)))
         if plain:
             return ufd.upfirdn2d_pair_plain(x0, x1, kernel, up, down, pad)
         return orig["pair"](x0, x1, kernel, up, down, pad, **adjoint)
@@ -148,7 +165,17 @@ def routed(calls=None, plain=False):
                                                  pre_bias is not None)))
         return orig["bwd"](dy, x, gamma, beta, stats, num_groups, eps, silu, pre_bias)
 
+    def fir_conv(x, w, k, factor, gain, bias, up):
+        if calls is not None:
+            calls.append(("fir_conv", ("up" if up else "down", tuple(x.shape), tuple(w.shape),
+                                       taps(() if k is None else k), factor, gain,
+                                       bias is not None)))
+        fn = ufd.fir_conv_plain if plain else orig["k6"]
+        return fn(x, w, k, factor, gain, bias, up)
+
     gn.group_norm_act, ufd.upfirdn2d = group_norm_act, upfirdn2d
+    if orig["k6"] is not None:
+        ufd.fir_conv = fir_conv
     if orig["pair"] is not None:
         ufd.upfirdn2d_pair = upfirdn2d_pair
     if orig["bwd"] is not None:
@@ -161,6 +188,8 @@ def routed(calls=None, plain=False):
             ufd.upfirdn2d_pair = orig["pair"]
         if orig["bwd"] is not None:
             gn.group_norm_act_bwd = orig["bwd"]
+        if orig["k6"] is not None:
+            ufd.fir_conv = orig["k6"]
 
 
 def full_model(dev, precision="float32", backbone="ncsnpp", **settings):
@@ -202,7 +231,10 @@ def label(name, sig):
 def make_case(name, sig, dtype, dev, gen):
     """Inputs and the callables of one signature: ``kernel``, ``plain``, and,
     where a yardstick exists, ``library`` with ``library_ref`` (the plain version
-    of the function the yardstick computes). Also its bytes and operations."""
+    of the function the yardstick computes). Also its bytes and operations.
+    K6 (``fir_conv``) is :func:`make_k6_case`'s."""
+    if name == "fir_conv":
+        return make_k6_case(sig, dtype, dev, gen)
     gn, ufd = ops_modules()
     shape = sig[0]
 
@@ -349,12 +381,15 @@ def graph_ms(fn, reps: int = REPS) -> float:
 
 
 def time_case(case) -> dict:
-    """Kernel, plain and library ms of one case, with its bound."""
+    """Kernel, plain and library ms of one case (and K6's earlier route's,
+    ``composition_ms``), with its bound."""
     row = {k: case[k] for k in ("name", "sig", "dtype", "bytes", "ops", "bound_ms", "bound_by",
                                 "ops_ms") if k in case}
     row["ms"] = graph_ms(case["kernel"])
     row["plain_ms"] = graph_ms(case["plain"])
     row["library_ms"] = graph_ms(case["library"]) if "library" in case else None
+    if "composition" in case:
+        row["composition_ms"] = graph_ms(case["composition"])
     return row
 
 
@@ -371,8 +406,7 @@ def record_train_calls(model, dev, batch, f_bins=F_BINS, frames=T_FRAMES):
     """The kernel-dispatcher calls of one train step of ``model`` at ``batch``
     (its forward in train mode with remat off, then the backward of a loss on
     its output),
-    on the dispatchers' own route: (forward calls, backward calls), the
-    backward's upfirdn2d calls renamed ``upfirdn2d_adjoint``."""
+    on the dispatchers' own route: (forward calls, backward calls)."""
     model.train()
     x, y, t = network_inputs(dev, f_bins, batch)
     x, y = x[..., :frames], y[..., :frames]
@@ -381,9 +415,7 @@ def record_train_calls(model, dev, batch, f_bins=F_BINS, frames=T_FRAMES):
         out = model.dnn(x, y, t)
         n_fwd = len(calls)
         torch.autograd.grad(out.abs().square().mean(), params)
-    bwd = [("upfirdn2d_adjoint" if name == "upfirdn2d" else name, sig)
-           for name, sig in calls[n_fwd:]]
-    return calls[:n_fwd], bwd
+    return calls[:n_fwd], calls[n_fwd:]
 
 
 def per_nfe(rows) -> dict:
@@ -394,7 +426,7 @@ def per_nfe(rows) -> dict:
         mine = [r for r in rows if r["name"] == name]
         total = lambda key: sum(r[key] * r["per_forward"] for r in mine)
         bytes_ms = total("bytes") / PEAK_BYTES_PER_S * 1e3
-        ops_ms = (total("ops_ms") if name == "k6_fir_conv"  # its convolution on tensor cores
+        ops_ms = (total("ops_ms") if name == "fir_conv"  # its convolution on tensor cores
                   else total("ops") / PEAK_F32_FLOPS * 1e3)
         out[name] = dict(
             launches_per_nfe=sum(r["per_forward"] for r in mine),
@@ -402,6 +434,8 @@ def per_nfe(rows) -> dict:
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=(None if any(r["library_ms"] is None for r in mine)
                         else total("library_ms")),
+            **({"composition_ms": total("composition_ms")}
+               if all("composition_ms" in r for r in mine) else {}),
             library_note=LIBRARY_NOTES[name] + (
                 "; " + K6_LIBRARY_NOTE if any("up=1 down=1" in r.get("sig", "") for r in mine)
                 else ""))
@@ -409,27 +443,13 @@ def per_nfe(rows) -> dict:
 
 
 def record_k6_calls(dev, backbone="ncsnpp_48k", **settings):
-    """The K6 (FIR + conv) calls of one full-width evaluation of a ``VARIANTS``
-    net: ``("up" | "down", x shape, w shape, FIR taps, factor)``, in first-call
-    order."""
-    _, ufd = ops_modules()
+    """The K6 (``fir_conv``) calls of one full-width evaluation of a
+    ``VARIANTS`` net, in first-call order (plain route)."""
     model = full_model(dev, backbone=backbone, **settings)
     x, y, t = network_inputs(dev, BINS[backbone])
-    calls, orig = [], {"up": ufd.upsample_conv_2d, "down": ufd.conv_downsample_2d}
-
-    def recorder(kind):
-        def call(x, w, k=None, factor=2, gain=1.0):
-            calls.append((kind, tuple(x.shape), tuple(w.shape), tuple(k), factor))
-            return orig[kind](x, w, k=k, factor=factor, gain=gain)
-        return call
-
-    ufd.upsample_conv_2d, ufd.conv_downsample_2d = recorder("up"), recorder("down")
-    try:
-        with torch.inference_mode(), routed(plain=True):
-            model.dnn(x, y, t)
-    finally:
-        ufd.upsample_conv_2d, ufd.conv_downsample_2d = orig["up"], orig["down"]
-    return calls
+    with torch.inference_mode(), routed(calls=[], plain=True) as calls:
+        model.dnn(x, y, t)
+    return [c for c in calls if c[0] == "fir_conv"]
 
 
 def _full_conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -439,57 +459,76 @@ def _full_conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out[0]
 
 
-def make_k6_case(kind, x_shape, w_shape, taps, factor, dtype, dev, gen):
-    """K6 at one call signature: ``kernel`` (cuDNN's convolution and the K1
-    pass, as the network runs it), ``plain`` (the same with the plain FIR),
-    ``library`` (one cuDNN call with the FIR folded into the weights: a 6x6
-    kernel at stride 2, padding 2) with ``library_ref``; bytes and
-    operations of the function."""
+def make_k6_case(sig, dtype, dev, gen):
+    """K6 at one ``fir_conv`` call signature: ``kernel`` (``csrc/fir_conv.cu``),
+    ``plain`` (the composition with the plain FIR), ``composition`` (cuDNN's
+    convolution and the K1 kernel's FIR pass, the route K6 took before its
+    kernel; timed, never called by the port), ``library`` (one cuDNN call with
+    the FIR folded into the weights: a 6x6 kernel at stride 2, padding 2, and
+    the bias) with ``library_ref``; ``faults``, two planted faults; bytes and
+    operations of the function. Weights and bias as the network holds them: channels_last in x's dtype,
+    float32."""
     _, ufd = ops_modules()
+    kind, x_shape, w_shape, taps, factor, gain, has_bias = sig
+    up = kind == "up"
     x = torch.randn(x_shape, generator=gen, device=dev).to(dtype).contiguous(
         memory_format=torch.channels_last)
-    w = 0.05 * torch.randn(w_shape, generator=gen, device=dev)
-    fn = ufd.upsample_conv_2d if kind == "up" else ufd.conv_downsample_2d
-    # the FIR pass's taps as the composition scales them, on the device (no host copy
-    # inside a CUDA graph's capture)
-    k_dev = torch.from_numpy(np.asarray(ufd.setup_kernel(taps), np.float32)
-                             * (factor**2 if kind == "up" else 1)).to(dev)
+    w = (0.05 * torch.randn(w_shape, generator=gen, device=dev)).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    bias = 0.1 * torch.randn(w_shape[0], generator=gen, device=dev) if has_bias else None
+    k2, _ = ufd._fir_args(w, taps, factor, gain, up)
+    # the FIR pass's taps on the device (no host copy inside a CUDA graph's capture)
+    k_dev = torch.from_numpy(np.asarray(k2, np.float32)).to(dev)
+    plain_fir = lambda y, _k, pad: ufd.upfirdn2d_plain(y, k_dev, pad=pad)
+    k1_fir = lambda y, _k, pad: ufd.upfirdn2d_cuda(y, k2, pad=pad)
+    args = (x, w, taps, factor, gain, bias, up)
 
-    def plain():  # the composition with the plain FIR pass
-        orig = ufd.upfirdn2d
-        ufd.upfirdn2d = lambda y, _k, up=1, down=1, pad=(0, 0), **_: ufd.upfirdn2d_plain(
-            y, k_dev, up, down, pad)
-        try:
-            return fn(x, w, k=taps, factor=factor)
-        finally:
-            ufd.upfirdn2d = orig
-
-    k2 = torch.from_numpy(np.asarray(ufd.setup_kernel(taps), np.float32)).to(dev)
+    kn = torch.from_numpy(np.asarray(ufd.setup_kernel(taps), np.float32)).to(dev)
     o, i = w_shape[:2]
-    if kind == "up":  # conv_transpose2d(w flipped) then the FIR: one transposed conv
-        wt = torch.flip(w, [2, 3]).transpose(0, 1).reshape(i * o, *w_shape[2:])
-        folded = _full_conv(k2 * factor**2, wt).reshape(i, o, 6, 6).to(dtype)
-        library = lambda: F.conv_transpose2d(x, folded, stride=factor, padding=2)
+    wf = w.float()
+    lib_bias = None if bias is None else bias.to(dtype)
+    if up:  # conv_transpose2d(w flipped) then the FIR: one transposed conv
+        wt = torch.flip(wf, [2, 3]).transpose(0, 1).reshape(i * o, *w_shape[2:])
+        folded = _full_conv(kn * factor**2 * gain, wt).reshape(i, o, 6, 6).to(dtype)
+        library = lambda: F.conv_transpose2d(x, folded, lib_bias, stride=factor, padding=2)
     else:  # the FIR (a correlation with the flipped taps) then the strided conv
-        folded = _full_conv(torch.flip(k2, [0, 1]), w.reshape(o * i, *w_shape[2:]))
+        folded = _full_conv(torch.flip(kn * gain, [0, 1]), wf.reshape(o * i, *w_shape[2:]))
         folded = folded.reshape(o, i, 6, 6).to(dtype)
-        library = lambda: F.conv2d(x, folded, stride=factor, padding=2)
+        library = lambda: F.conv2d(x, folded, lib_bias, stride=factor, padding=2)
+    plain = lambda: ufd.fir_conv_composition(*args, fir=plain_fir)
     esize = torch.empty((), dtype=dtype).element_size()
     y_shape = tuple(plain().shape)
     b, c_in, h, wd = x_shape
-    if kind == "up":  # the transposed conv's MACs, then 16 taps per FIR output
+    # The FIR is separable: 4 taps across, then 4 down, 8 MACs per FIR output.
+    if up:  # the transposed conv's MACs, then the FIR on every output
         conv_ops = 2 * b * c_in * h * wd * o * 9
-        fir_ops = 2 * 16 * int(np.prod(y_shape))
-    else:  # 16 taps per FIR output (input + 1 per side), then the strided conv's MACs
+        fir_ops = 2 * 8 * int(np.prod(y_shape))
+    else:  # the FIR on the input + 1 per side, then the strided conv's MACs
         conv_ops = 2 * int(np.prod(y_shape)) * c_in * 9
-        fir_ops = 2 * 16 * b * c_in * (h + 1) * (wd + 1)
-    case = dict(name="k6_fir_conv", sig=f"{kind} x={x_shape} w={w_shape}", dtype=str(dtype)
-                .split(".")[-1], kernel=lambda: fn(x, w, k=taps, factor=factor), plain=plain,
-                library=library, library_ref=plain,
-                bytes=int((np.prod(x_shape) + np.prod(y_shape) + np.prod(w_shape)) * esize),
+        fir_ops = 2 * 8 * b * c_in * (h + 1) * (wd + 1)
+    # Two planted faults, to show what the limit must catch: the FIR's horizontal pass
+    # without its first tap (the plain version so changed), and the kernel skipping C_in's
+    # first slice (16 channels in bf16, 8 in f32, one on the narrow path; its weights zeroed).
+    k_drop = k_dev.clone()
+    k_drop[:, 0] = 0
+    drop_fir = lambda y, _k, pad: ufd.upfirdn2d_plain(y, k_drop, pad=pad)
+    w_skip = w.clone()
+    w_skip[:, :1 if c_in < 16 else 32 // esize] = 0
+    faults = dict(tap_dropped=lambda: ufd.fir_conv_composition(*args, fir=drop_fir),
+                  slice_skipped=lambda: ufd.fir_conv_cuda(x, w_skip, taps, factor, gain, bias, up))
+    case = dict(name="fir_conv", sig=f"{kind} x={x_shape} w={w_shape}",
+                dtype=str(dtype).split(".")[-1],
+                kernel=lambda: ufd.fir_conv_cuda(*args), plain=plain,
+                composition=lambda: ufd.fir_conv_composition(*args, fir=k1_fir),
+                library=library, library_ref=plain, faults=faults,
+                bytes=int((np.prod(x_shape) + np.prod(y_shape) + np.prod(w_shape)) * esize
+                          + (w_shape[0] * 4 if has_bias else 0)),
                 ops=conv_ops + fir_ops)
+    # the convolution on the tensor cores at the rate of the type this run computes in
+    conv_rate = (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else
+                 PEAK_TF32_FLOPS if torch.backends.cudnn.allow_tf32 else PEAK_F32_FLOPS)
     bytes_ms = case["bytes"] / PEAK_BYTES_PER_S * 1e3
-    ops_ms = (conv_ops / PEAK_BF16_FLOPS + fir_ops / PEAK_F32_FLOPS) * 1e3
+    ops_ms = (conv_ops / conv_rate + fir_ops / PEAK_F32_FLOPS) * 1e3
     case["bound_ms"], case["ops_ms"] = max(bytes_ms, ops_ms), ops_ms
     case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return case
@@ -509,13 +548,15 @@ def main(argv=None) -> dict:
                         help="whose full-width call signatures to time")
     parser.add_argument("--variant", choices=sorted(VARIANTS), default=None,
                         help="time the call signatures of this NCSN++ variant instead "
-                             "(48k_residual: K1 at the K6 signatures; ncsnpp_variant: K2 "
+                             "(48k_residual: K6 and K1; ncsnpp_variant: K2 "
                              "without SiLU; learn_demo, demo_48k: the learn demos' nets), "
                              "with --train those of its train step")
     parser.add_argument("--k6", action="store_true",
-                        help="with --variant 48k_residual: time K6 (FIR + conv) itself at each "
-                             "of its call signatures, beside one cuDNN call with the FIR folded "
-                             "into the weights")
+                        help="with --variant 48k_residual: time K6 (FIR + conv + bias, "
+                             "fir_conv) at each of its call signatures, beside its earlier route "
+                             "(cuDNN + the K1 kernel) and one cuDNN call with the FIR folded "
+                             "into the weights; checks the kernel and the folded call against "
+                             "the plain version, and that two planted faults miss it")
     parser.add_argument("--train", action="store_true",
                         help="time the calls of one flagship train step (float32), "
                              "forward and backward, per step")
@@ -546,15 +587,17 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for key, n in counts.items():
-        case = (make_k6_case(*key, dtype, dev, gen) if args.k6
-                else make_case(*key, dtype, dev, gen))
-        if args.k6:  # the folded call computes the same function: hold it to the plain
-            ref, lib = case["library_ref"]().float(), case["library"]().float()
-            case["library_err"] = ((lib - ref).abs().max() / ref.abs().max()).item()
-            if not case["library_err"] <= 2.0**-6:  # a few bf16 roundings apart
-                raise AssertionError(f"{case['sig']}: folded K6 off by {case['library_err']}")
-        rows.append(dict(time_case(case), per_forward=n,
-                         **({"library_err": case["library_err"]} if args.k6 else {})))
+        case = make_case(*key, dtype, dev, gen)
+        if args.k6:  # the kernel, the folded call and the planted faults against plain
+            ref = case["plain"]().float()
+            rel = lambda f: ((f().float() - ref).abs().max() / ref.abs().max()).item()
+            errs = dict(err=rel(case["kernel"]), library_err=rel(case["library"]),
+                        **{f"fault_{k}_err": rel(f) for k, f in case["faults"].items()})
+            faults = [v for k, v in errs.items() if k.startswith("fault_")]
+            if not (errs["err"] <= K6_TOL and errs["library_err"] <= K6_LIBRARY_TOL
+                    and min(faults) > K6_TOL):
+                raise AssertionError(f"{case['sig']}: K6 against the plain version {errs}")
+        rows.append(dict(time_case(case), per_forward=n, **(errs if args.k6 else {})))
     result = dict(card=card(), root=args.root or ".", backbone=args.backbone,
                   variant=args.variant, shapes=rows)
     if args.train:

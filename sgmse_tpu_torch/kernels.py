@@ -126,6 +126,8 @@ def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
     handle.sgmse_group_norm_act.restype = i
     handle.sgmse_group_norm_act_bwd.argtypes = [p] * 14 + [i] * 11 + [f, i, i, p]
     handle.sgmse_group_norm_act_bwd.restype = i
+    handle.sgmse_fir_conv.argtypes = [p] * 4 + [i] * 18 + [p, i, i, p]
+    handle.sgmse_fir_conv.restype = i
     handle.sgmse_error_string.argtypes = [i]
     handle.sgmse_error_string.restype = ctypes.c_char_p
     return handle

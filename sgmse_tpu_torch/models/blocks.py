@@ -282,9 +282,11 @@ class AttnBlockpp(nn.Module):
 
 
 class FIRConv2d(nn.Module):
-    """Conv2d fused with FIR up- or downsampling (JAX ``FIRConv2d``): K6,
-    cuDNN's convolution and one K1 pass (``ufd.upsample_conv_2d`` /
-    ``ufd.conv_downsample_2d``). ``weight`` is OIHW, drawn with the DDPM rule;
+    """Conv2d fused with FIR up- or downsampling (JAX ``FIRConv2d``): K6, one
+    launch of ``csrc/fir_conv.cu`` on the card with the bias added inside it
+    (``ufd.upsample_conv_2d`` / ``ufd.conv_downsample_2d``; in bfloat16 the
+    kernel rounds once where JAX rounds the conv and the bias add apart, at
+    most one bf16 step). ``weight`` is OIHW, drawn with the DDPM rule;
     ``bias`` is zero-initialised."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, up: bool = False,
@@ -308,11 +310,10 @@ class FIRConv2d(nn.Module):
         dt = self.dtype or torch.float32
         x, w = x.to(dt), self.weight.to(dt)
         if self.up:
-            x = ufd.upsample_conv_2d(x, w, k=self.resample_kernel)
-        elif self.down:
-            x = ufd.conv_downsample_2d(x, w, k=self.resample_kernel)
-        else:
-            x = F.conv2d(x, w, padding=w.shape[-1] // 2)
+            return ufd.upsample_conv_2d(x, w, k=self.resample_kernel, bias=self.bias)
+        if self.down:
+            return ufd.conv_downsample_2d(x, w, k=self.resample_kernel, bias=self.bias)
+        x = F.conv2d(x, w, padding=w.shape[-1] // 2)
         if self.bias is not None:
             x = x + self.bias.to(dt)[:, None, None]
         return x

@@ -27,8 +27,8 @@ blocks), FIR or nearest/mean resampling (``fir``), ``output_skip``,
 or ``cat``, swish (fused into K2) or elu, relu, lrelu after K2
 (``nonlinearity``), Fourier or positional time embedding. The FIR
 convolutions of the residual pyramids and of the DDPM resamplers are K6
-(``ops.upfirdn2d.upsample_conv_2d`` / ``conv_downsample_2d``: cuDNN plus one
-K1 pass).
+(``ops.upfirdn2d.upsample_conv_2d`` / ``conv_downsample_2d``: one launch of
+``csrc/fir_conv.cu`` per call, the bias inside).
 Training, as in the JAX package: ``dropout`` applies inside each res-block in
 ``train()`` mode only, with masks drawn from the ``generator`` given to
 forward; ``remat`` recomputes each res-block in the backward pass

@@ -2,6 +2,7 @@
 on the card.
 
     python -m sgmse_tpu_torch.nfe_profile [--backbone ncsnpp_48k|dcunet] [--out DIR]
+    python -m sgmse_tpu_torch.nfe_profile --variant 48k_residual [--train --batch 8]
     python -m sgmse_tpu_torch.nfe_profile --train [--backbone dcunet] [--out DIR]
 
 Builds a full-width NCSN++ (seeded weights, bfloat16 compute, channels_last),
@@ -20,11 +21,13 @@ at n_fft 512 (``DCUNET``), and evaluates it on a (4, 1, F, 256) input (four
 The trace inflates host time, so the idle share of the traced span is an upper
 bound; the busy time against the untraced wall time gives the other reading.
 For DCUNet it adds the byte bound of its block epilogues
-(``dcunet_epilogue_bound``), the candidate for a fused kernel.
+(``dcunet_epilogue_bound``), the candidate for a fused kernel. ``--variant``
+profiles a ``kernel_times.VARIANTS`` net instead (the 48 kHz net with residual
+pyramids runs K6, ``csrc/fir_conv.cu``), and with ``--train`` its train step.
 Prints one JSON line; writes the trace to ``DIR/nfe_trace.json``.
 
 With ``--train`` the unit is one train step of the backbone (the flagship at
-full width, or DCUNet as above) at the JAX training defaults (B=8 2.04-s crops, or ``--batch``; float32, Adam + EMA,
+full width, ``ncsnpp_48k`` on the 48 kHz STFT, or DCUNet as above) at the JAX training defaults (B=8 2.04-s crops, or ``--batch``; float32, Adam + EMA,
 seeded weights): CUDA events around windows of ``TRAIN_REPS`` steps
 (steps/s, samples/s), the peak device memory, and a trace of
 ``TRAIN_TRACED`` steps (``DIR/train_trace.json``) read the same way.
@@ -41,7 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .kernel_times import BINS, PEAK_BYTES_PER_S
+from .kernel_times import BINS, PEAK_BYTES_PER_S, VARIANTS
 
 BATCH, FRAMES = 4, 256  # the main path's batch of 2.04-s utterances
 REPS = 20               # evaluations per timed window
@@ -52,6 +55,7 @@ TRAIN_TRACED = 2        # profiled train steps
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("NCCL collectives", ("nccl",)),
+    ("K6 fir_conv", ("fir_conv",)),
     ("K2 group_norm_act", ("gn_act_kernel",)),
     ("K2b group_norm_act_bwd", ("gn_bwd_",)),
     ("K1 upfirdn2d", ("upfirdn2d",)),
@@ -63,6 +67,9 @@ KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("reductions", ("reduce_kernel",)),
     ("elementwise", ("elementwise",)),
 )
+# The 48 kHz recipe's STFT (the JAX CLI's 48 kHz flags): the 768 bins of
+# BINS["ncsnpp_48k"], and train crops of 255 hops of 384 samples.
+STFT_48K = dict(n_fft=1534, hop_length=384, spec_factor=0.065, spec_abs_exponent=0.667)
 # DilDCUNet-v2 as the JAX training CLI builds it at n_fft 512 (hop 128, 257 frequency
 # bins; the CLI's one global time-embedding layer and leaky_relu, bN norms).
 DCUNET = dict(n_fft=512, hop_length=128, dcunet_temb_layers_global=1,
@@ -258,6 +265,8 @@ def train_step_profile(model, out_dir, batch: int, seed: int = 0,
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--backbone", choices=sorted(BINS) + ["dcunet"], default="ncsnpp")
+    parser.add_argument("--variant", choices=sorted(VARIANTS), default=None,
+                        help="profile this kernel_times.VARIANTS net instead")
     parser.add_argument("--train", action="store_true",
                         help="profile a train step (float32) of the backbone instead")
     parser.add_argument("--batch", type=int, default=TRAIN_BATCH,
@@ -269,8 +278,11 @@ def main(argv=None) -> dict:
     from .model import ScoreModel
 
     dev = torch.device("cuda", 0)
+    if args.variant:
+        args.backbone, variant = VARIANTS[args.variant]
     dcunet = args.backbone == "dcunet"
-    settings = DCUNET if dcunet else {"init_scale": 1.0}
+    settings = DCUNET if dcunet else dict(init_scale=1.0, **(variant if args.variant else {}),
+                                          **(STFT_48K if args.backbone == "ncsnpp_48k" else {}))
     if args.train:
         model = ScoreModel(args.backbone, "ouve", **settings).to(
             dev, memory_format=torch.channels_last)

@@ -130,7 +130,8 @@ def _launch_counts(reset: bool = False) -> Dict[str, int]:
     counters = {"upfirdn2d": (ufd.upfirdn2d_cuda, "launches"),
                 "upfirdn2d_adjoint": (ufd.upfirdn2d_cuda, "adjoint_launches"),
                 "group_norm_act": (gn.group_norm_act_cuda, "launches"),
-                "group_norm_act_bwd": (gn.group_norm_act_bwd_cuda, "launches")}
+                "group_norm_act_bwd": (gn.group_norm_act_bwd_cuda, "launches"),
+                "fir_conv": (ufd.fir_conv_cuda, "launches")}
     counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     if reset:
         for fn, attr in counters.values():

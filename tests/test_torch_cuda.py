@@ -237,6 +237,75 @@ def test_upfirdn2d_backward_kernel_matches_plain(dev, dtype, shape, up, pair):
         _agree(g, r.contiguous(memory_format=torch.channels_last), dtype)
 
 
+@pytest.mark.parametrize("tf32", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("up,x_shape,c_out", [(False, (2, 4, 24, 40), 16),   # narrow path
+                                              (False, (2, 32, 21, 34), 24),  # ragged tiles
+                                              (False, (1, 256, 24, 8), 256),
+                                              (True, (2, 32, 9, 20), 16),
+                                              (True, (1, 256, 12, 4), 256),
+                                              (True, (2, 128, 40, 24), 128)])
+def test_fir_conv_kernel_matches_plain(dev, dtype, tf32, up, x_shape, c_out):
+    """K6 (one launch, with its bias) against the composition of the plain
+    version; float32 in TF32 (tolerance 2e-3) and in three TF32 products."""
+    if dtype == torch.bfloat16 and tf32:
+        pytest.skip("TF32 applies to float32 only")
+    x = _input(x_shape, dtype, dev)
+    w = (0.1 * _input((c_out, x_shape[1], 3, 3), torch.float32, dev, seed=1)).to(dtype)
+    bias = torch.randn(c_out, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    before = ufd.fir_conv_cuda.launches
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        got = ufd.fir_conv(x, w, (1, 3, 3, 1), 2, 1.0, bias, up)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert ufd.fir_conv_cuda.launches == before + 1
+    ref = ufd.fir_conv_plain(x, w, (1, 3, 3, 1), 2, 1.0, bias, up)
+    assert got.shape == ref.shape and got.is_contiguous(memory_format=torch.channels_last)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= (2e-3 if tf32 else TOL[dtype]) * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_fir_conv_gradients_match_plain(dev, up):
+    """K6's backward (the FIR's adjoint as one K1 launch, cuDNN's gradients,
+    the bias sum; down recomputes FIR(x) with one K1 launch) against autograd
+    through the plain composition, float32."""
+    x = _input((2, 32, 12, 20), torch.float32, dev).requires_grad_()
+    w = (0.1 * _input((16, 32, 3, 3), torch.float32, dev, seed=1)).requires_grad_()
+    bias = torch.randn(16, device=dev).requires_grad_()
+    fn = ufd.upsample_conv_2d if up else ufd.conv_downsample_2d
+    y = fn(x, w, k=(1, 3, 3, 1), bias=bias)
+    dy = _input(y.shape, torch.float32, dev, seed=3)
+    before = (ufd.upfirdn2d_cuda.launches, ufd.upfirdn2d_cuda.adjoint_launches)
+    grads = torch.autograd.grad(y, (x, w, bias), dy)
+    torch.cuda.synchronize()
+    assert (ufd.upfirdn2d_cuda.launches - before[0],
+            ufd.upfirdn2d_cuda.adjoint_launches - before[1]) == ((0, 1) if up else (1, 1))
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, bias)]
+    ref = ufd.fir_conv_composition(*leaves[:2], (1, 3, 3, 1), 2, 1.0, leaves[2], up)
+    refs = torch.autograd.grad(ref, leaves, dy)
+    for g, r in zip(grads, refs):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+def test_fir_conv_kernel_refuses_what_it_does_not_take(dev):
+    x = _input((1, 32, 16, 16), torch.float32, dev)
+    w = _input((16, 32, 3, 3), torch.float32, dev)
+    with pytest.raises(ValueError):  # a 2-D FIR
+        ufd.fir_conv_cuda(x, w, np.ones((4, 4)), 2, 1.0, None, True)
+    with pytest.raises(ValueError):  # factor 3
+        ufd.fir_conv_cuda(x, w, (1, 3, 3, 1), 3, 1.0, None, True)
+    with pytest.raises(ValueError):  # 5x5 weights
+        ufd.fir_conv_cuda(x, _input((16, 32, 5, 5), torch.float32, dev), (1, 3, 3, 1), 2, 1.0,
+                          None, False)
+    with pytest.raises(ValueError):  # C_in of 24 on the up path
+        ufd.fir_conv_cuda(_input((1, 24, 8, 8), torch.float32, dev),
+                          _input((16, 24, 3, 3), torch.float32, dev), (1, 3, 3, 1), 2, 1.0,
+                          None, True)
+
+
 def test_training_gradients_reach_every_parameter_through_the_kernels(dev):
     """A small network's loss and gradients through the kernels (forward and
     backward) against the plain versions, 1e-3 of max|grad| per leaf; every

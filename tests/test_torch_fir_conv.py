@@ -1,8 +1,8 @@
-"""K6 of the port, FIR + convolution (``ops.upfirdn2d.upsample_conv_2d`` and
-``conv_downsample_2d``: cuDNN's convolution and one K1 pass at up = down = 1),
-and the blocks built on it (``FIRConv2d``, ``Upsample`` and ``Downsample`` in
-every (fir, with_conv) form) against the JAX package, on the CPU, where K1 is
-its plain version.
+"""K6 of the port, FIR + convolution + bias (``ops.upfirdn2d.upsample_conv_2d``
+and ``conv_downsample_2d``: one launch of ``csrc/fir_conv.cu`` on the card,
+the composition of the convolution and the FIR on the CPU, where this runs),
+with its backward, and the blocks built on it (``FIRConv2d``, ``Upsample`` and
+``Downsample`` in every (fir, with_conv) form) against the JAX package.
 
 Weights: the port's seeded init, carried to JAX by
 ``convert.jax_tree_from_state_dict``; inputs and the output cotangent: numpy,
@@ -40,24 +40,35 @@ def _nchw(a):
         memory_format=torch.channels_last)
 
 
+@pytest.mark.parametrize("c_in,c_out", [(C_IN, C_OUT), (16, 8)])
 @pytest.mark.parametrize("name", ["upsample_conv_2d", "conv_downsample_2d"])
-def test_fir_conv_functions_match_jax(name):
+def test_fir_conv_functions_match_jax(name, c_in, c_out):
+    """The functions with FIRConv2d's bias passed in, against JAX's FIRConv2d
+    (its conv, FIR and bias add): the forward and the gradients of x, w and
+    the bias. C_in = 4 is the input pyramid's first level (4 -> 128 at full
+    width), which the kernel takes on its narrow path."""
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((B, H, W, C_IN)).astype(np.float32)  # NHWC
-    w = rng.standard_normal((3, 3, C_IN, C_OUT)).astype(np.float32)  # HWIO
-    jfn = getattr(jufd, name)
-    ref = np.asarray(jfn(jnp.asarray(x), jnp.asarray(w), k=FIR))
+    x = rng.standard_normal((B, H, W, c_in)).astype(np.float32)  # NHWC
+    w = rng.standard_normal((3, 3, c_in, c_out)).astype(np.float32)  # HWIO
+    bias = rng.standard_normal(c_out).astype(np.float32)
+    up = name == "upsample_conv_2d"
+    jmod = jblocks.FIRConv2d(c_out, up=up, down=not up, resample_kernel=FIR)
+    apply = lambda a, b, c: jmod.apply({"params": {"weight": b, "bias": c}}, a)
+    ref = np.asarray(apply(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias)))
     cot = rng.standard_normal(ref.shape).astype(np.float32)
-    ref_dx, ref_dw = jax.grad(lambda a, b: jnp.sum(jfn(a, b, k=FIR) * cot), (0, 1))(
-        jnp.asarray(x), jnp.asarray(w))
+    ref_dx, ref_dw, ref_db = jax.grad(lambda a, b, c: jnp.sum(apply(a, b, c) * cot),
+                                      (0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                                 jnp.asarray(bias))
 
     xt = _nchw(x).requires_grad_(True)
     wt = torch.from_numpy(w.transpose(3, 2, 0, 1).copy()).requires_grad_(True)  # OIHW
-    out = getattr(ufd, name)(xt, wt, k=FIR)
+    bt = torch.from_numpy(bias).requires_grad_(True)
+    out = getattr(ufd, name)(xt, wt, k=FIR, bias=bt)
     _close(out.detach().permute(0, 2, 3, 1), ref, FWD_TOL, "forward")
-    dx, dw = torch.autograd.grad((out * _nchw(cot)).sum(), (xt, wt))
+    dx, dw, db = torch.autograd.grad((out * _nchw(cot)).sum(), (xt, wt, bt))
     _close(dx.permute(0, 2, 3, 1), ref_dx, GRAD_TOL, "dx")
     _close(dw.permute(2, 3, 1, 0), ref_dw, GRAD_TOL, "dw")
+    _close(db, ref_db, GRAD_TOL, "dbias")
 
 
 MODULES = {

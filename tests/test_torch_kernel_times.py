@@ -55,6 +55,28 @@ def test_upfirdn2d_library_yardstick_matches_plain(sig):
     assert case["bound_by"] == "bytes" and case["bound_ms"] > 0
 
 
+@pytest.mark.parametrize("kind,c_in", [("up", 16), ("down", 16), ("down", 4)])
+def test_k6_library_yardstick_matches_plain(kind, c_in):
+    """K6's yardstick, one convolution with the FIR folded into 6x6 weights and
+    the bias, computes the plain composition's function; its bytes are the
+    input, output, weights and bias, its operations the convolution's and the
+    separable FIR's (8 MACs an output); its planted FIR fault misses the plain
+    version by far more than K6's limit."""
+    sig = (kind, (2, c_in, 10, 6), (8, c_in, 3, 3), (1.0, 3.0, 3.0, 1.0), 2, 1.0, True)
+    case = kt.make_case("fir_conv", sig, torch.float32, CPU, torch.Generator().manual_seed(0))
+    ref = case["library_ref"]()
+    _close(case["library"](), ref)
+    out = ref.shape
+    assert out == ((2, 8, 20, 12) if kind == "up" else (2, 8, 5, 3))
+    assert case["bytes"] == (2 * c_in * 60 + int(np.prod(out)) + 8 * c_in * 9) * 4 + 8 * 4
+    conv = 2 * (2 * c_in * 60 if kind == "up" else int(np.prod(out)) * c_in) * 9 * (
+        8 if kind == "up" else 1)
+    fir = 2 * 8 * (int(np.prod(out)) if kind == "up" else 2 * c_in * 11 * 7)
+    assert case["ops"] == conv + fir and case["bound_ms"] > 0
+    fault = case["faults"]["tap_dropped"]()
+    assert (fault - ref).abs().max() > 2 * kt.K6_TOL * ref.abs().max()
+
+
 def test_plain_resampling_is_the_jax_resampling():
     """What the yardsticks are held to is the JAX package's upsample/downsample."""
     rng = np.random.default_rng(3)
@@ -122,7 +144,8 @@ def test_per_nfe_sums_each_signature_times_its_calls():
     ("ncsnpp", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4], 49),
     ("ncsnpp_v2", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4], 49),
     ("ncsnpp_48k", 768, {"upfirdn2d": 12, "group_norm_act": 100}, [99, 1], 49),
-    ("48k_residual", 768, {"upfirdn2d": 24, "group_norm_act": 101}, [100, 1], 49),
+    ("48k_residual", 768, {"upfirdn2d": 12, "fir_conv": 12, "group_norm_act": 101}, [100, 1],
+     49),
     ("ncsnpp_variant", 256, {"upfirdn2d": 0, "group_norm_act": 85}, [0, 85], 37),
     ("learn_demo", 256, {"upfirdn2d": 12, "group_norm_act": 45}, [44, 1], 20),
     ("demo_48k", 768, {"upfirdn2d": 6, "group_norm_act": 42}, [41, 1], 20),
@@ -132,11 +155,12 @@ def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward
     """At full depth (narrow, short): the calls chip_smoke.py expects per network
     evaluation. The 48 kHz net has no pyramids (res-block pairs only) and keeps
     the middle block's attention, whose norm has no SiLU; with residual
-    pyramids (``kt.VARIANTS``) it adds 12 K6 FIR passes (K1 at up = down = 1,
-    6 down, 6 up) and the top pyramid norm. The ``ncsnpp`` variant (DDPM
-    blocks, no FIR, elu) calls no K1, and K2 always without SiLU. The learn
-    demos' nets (nf 32, four levels of one res-block) make a quarter of the
-    res-block pairs' calls, the 16 kHz one with its pyramids."""
+    pyramids (``kt.VARIANTS``) it adds 12 K6 calls (``fir_conv``, one kernel
+    launch each: 6 down, 6 up, each with its bias) and the top pyramid norm.
+    The ``ncsnpp`` variant (DDPM blocks, no FIR, elu) calls no K1, and K2
+    always without SiLU. The learn demos' nets (nf 32, four levels of one
+    res-block) make a quarter of the res-block pairs' calls, the 16 kHz one
+    with its pyramids."""
     backbone, settings = kt.VARIANTS.get(backbone, (backbone, {}))
     model = ScoreModel(backbone, "ouve", init_scale=1.0, **dict(dict(nf=8), **settings))
     model = model.dnn.eval()
@@ -147,8 +171,10 @@ def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward
     gn_sigs = [s for n, s in calls if n == "group_norm_act"]
     assert [sum(1 for s in gn_sigs if s[3] == flag) for flag in (True, False)] == silu_split
     assert sum(1 for s in gn_sigs if s[4]) == pre_bias
-    k6 = [s for n, s in calls if n == "upfirdn2d" and s[1:3] == (1, 1)]
-    assert sorted({s[3] for s in k6}) == ([(1, 1), (2, 2)] if k6 else [])
+    k6 = [s for n, s in calls if n == "fir_conv"]
+    assert sorted({(s[0], s[4], s[5], s[6]) for s in k6}) == (
+        [("down", 2, 1.0, True), ("up", 2, 1.0, True)] if k6 else [])
+    assert not [s for n, s in calls if n == "upfirdn2d" and s[1:3] == (1, 1)]
 
 
 def test_train_signatures_are_the_flagship_training_calls():
