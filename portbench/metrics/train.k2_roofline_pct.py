@@ -1,0 +1,7 @@
+"""train.k2_roofline_pct (%): the frozen bounds of the window's K2 calls
+(``group_norm_act``) over the traced time of the K2 kernels."""
+from portbench import readers
+
+
+def read(ctx):
+    return readers.roofline_pct(ctx, ("group_norm_act",), "K2")
