@@ -25,6 +25,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from .. import parallel
+from ..utils.profiling import span
 from . import native
 from .wav import read_wav
 
@@ -150,6 +151,10 @@ class WavLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        # The prologue (permutation, crop seeds, the pool's first loads) is one
+        # ``data.epoch`` span, each wait for a loaded batch a ``data.wait`` span.
+        epoch = span("data.epoch")
+        epoch.__enter__()
         n = len(self.dataset)
         rng = np.random.default_rng(self.seed + self._epoch)
         self._epoch += 1
@@ -200,13 +205,15 @@ class WavLoader:
                     futures.append(ex.submit(load_batch, *next(it)))
                 except StopIteration:
                     break
+            epoch.__exit__(None, None, None)
             while futures:
                 fut = futures.pop(0)
                 try:
                     futures.append(ex.submit(load_batch, *next(it)))
                 except StopIteration:
                     pass
-                x, y, path = fut.result()
+                with span("data.wait"):
+                    x, y, path = fut.result()
                 native.SERVED[path] += 1
                 if self.rows is not None:
                     b = self.batch_size // self.rows[1]

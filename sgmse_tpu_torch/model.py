@@ -46,6 +46,7 @@ from .models import BackboneRegistry
 from .parallel.rows import draw
 from .sdes import SDERegistry, crandn
 from .utils.pesq_loss import PesqLoss
+from .utils.profiling import span
 
 _SPEC_KEYS = ("n_fft", "hop_length", "window", "transform_type", "spec_factor",
               "spec_abs_exponent", "num_frames")
@@ -205,27 +206,28 @@ class ScoreModel(nn.Module):
     def forward(self, x_t, y, t, generator: Optional[torch.Generator] = None):
         """The score (or, for ``ncsnpp_v2`` with ``data_prediction``, the clean
         state) at (x_t, y, t). ``generator`` draws dropout masks in ``train()``
-        mode."""
-        if self.backbone != "ncsnpp_v2":
-            return -self.dnn(x_t, y, t, generator)
-        c_in = self._c_in(t)
-        if not isinstance(c_in, float):  # 1.0: the identity, skipped
-            x_t_in, y_in = c_in * x_t, c_in * y
-        else:
-            x_t_in, y_in = x_t, y
-        out = self.dnn(x_t_in, y_in, t, generator)
-        if self.network_scaling == "1/sigma":
-            out = out / _bcast(self.sde._std(t))
-        elif self.network_scaling == "1/t":
-            out = out / _bcast(t)
-        if self.loss_type in ("score_matching", "data_prediction"):
-            c_out, c_skip = self._c_out(t), self._c_skip(t)
-            if not isinstance(c_out, float):
-                out = c_out * out
-            return out if isinstance(c_skip, float) else c_skip * x_t + out
-        elif self.loss_type == "denoiser":
-            return (out - x_t) / _bcast(self.sde._std(t)) ** 2
-        raise ValueError(f"Invalid loss type: {self.loss_type}")
+        mode. One evaluation is one ``net`` span (``utils.profiling.span``)."""
+        with span("net"):
+            if self.backbone != "ncsnpp_v2":
+                return -self.dnn(x_t, y, t, generator)
+            c_in = self._c_in(t)
+            if not isinstance(c_in, float):  # 1.0: the identity, skipped
+                x_t_in, y_in = c_in * x_t, c_in * y
+            else:
+                x_t_in, y_in = x_t, y
+            out = self.dnn(x_t_in, y_in, t, generator)
+            if self.network_scaling == "1/sigma":
+                out = out / _bcast(self.sde._std(t))
+            elif self.network_scaling == "1/t":
+                out = out / _bcast(t)
+            if self.loss_type in ("score_matching", "data_prediction"):
+                c_out, c_skip = self._c_out(t), self._c_skip(t)
+                if not isinstance(c_out, float):
+                    out = c_out * out
+                return out if isinstance(c_skip, float) else c_skip * x_t + out
+            elif self.loss_type == "denoiser":
+                return (out - x_t) / _bcast(self.sde._std(t)) ** 2
+            raise ValueError(f"Invalid loss type: {self.loss_type}")
 
     def score_fn(self):
         """score_fn(x, y, t) for the samplers."""
@@ -334,52 +336,53 @@ class ScoreModel(nn.Module):
             generator = torch.Generator(device=device).manual_seed(0)
         sde = self.sde if sde is None else sde
         stype = sampler_type if sampler_type is not None else sde.sampler_type
-        start = time.time()
-        y = torch.as_tensor(np.asarray(y_wav, dtype=np.float32), device=device)
-        squeeze = y.ndim == 1
-        if squeeze:
-            y = y[None]
-        t_orig = y.shape[-1]
-        # Floor like the training normalization: silence must not divide by zero.
-        norm = y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-10)
-        Y = pad_spec(self.spec.wav_to_spec(y / norm)[:, None], mode=pad_mode)
+        start = time.time() if timeit else None
 
         def as_device(a):
             return None if a is None else torch.as_tensor(a, device=device)
 
-        noise = as_device(prior_noise)
+        with span("enhance.prep"):
+            y = torch.as_tensor(np.asarray(y_wav, dtype=np.float32), device=device)
+            squeeze = y.ndim == 1
+            if squeeze:
+                y = y[None]
+            t_orig = y.shape[-1]
+            # Floor like the training normalization: silence must not divide by zero.
+            norm = y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-10)
+            Y = pad_spec(self.spec.wav_to_spec(y / norm)[:, None], mode=pad_mode)
+            noise, corrector_noise = as_device(prior_noise), as_device(corrector_noise)
         score_fn = self.score_fn()
         if evaluation_lock is not None:
             score_fn = _holding(evaluation_lock, score_fn)
         trajectory = None
-        if self.sde_name == "ouve":
-            sde = dataclasses.replace(sde, N=N)
-            if stype == "pc":
-                sample, nfe = sampling.pc_sampler(
-                    predictor, corrector, sde, score_fn, Y, generator=generator,
-                    denoise=True, eps=self.t_eps, snr=snr, corrector_steps=corrector_steps,
-                    noise=noise, corrector_noise=as_device(corrector_noise),
-                    intermediate=intermediate)
-                if intermediate:
-                    sample, trajectory = sample
-                    trajectory = trajectory.cpu().numpy()
-            elif stype == "ode":
-                sample, nfe = sampling.ode_sampler(
-                    sde, score_fn, Y, generator=generator, eps=self.t_eps, N=N, method=method,
-                    max_steps=max_steps, noise=noise)
-            else:
-                raise ValueError(f"Invalid sampler type for SGMSE sampling: {stype}")
-        else:  # sbve: pc maps to ode, and N is not passed (the JAX enhance passes none)
-            sample, nfe = sampling.sb_sampler(
-                sde, score_fn, Y, generator=generator,
-                sampler_type="ode" if stype == "pc" else stype, noise=noise)
-        x_hat = (self.to_audio(sample[:, 0], t_orig) * norm).cpu().numpy()  # host fence
-        end = time.time()
+        with span("sampler"):
+            if self.sde_name == "ouve":
+                sde = dataclasses.replace(sde, N=N)
+                if stype == "pc":
+                    sample, nfe = sampling.pc_sampler(
+                        predictor, corrector, sde, score_fn, Y, generator=generator,
+                        denoise=True, eps=self.t_eps, snr=snr, corrector_steps=corrector_steps,
+                        noise=noise, corrector_noise=corrector_noise, intermediate=intermediate)
+                    if intermediate:
+                        sample, trajectory = sample
+                        trajectory = trajectory.cpu().numpy()
+                elif stype == "ode":
+                    sample, nfe = sampling.ode_sampler(
+                        sde, score_fn, Y, generator=generator, eps=self.t_eps, N=N,
+                        method=method, max_steps=max_steps, noise=noise)
+                else:
+                    raise ValueError(f"Invalid sampler type for SGMSE sampling: {stype}")
+            else:  # sbve: pc maps to ode, and N is not passed (the JAX enhance passes none)
+                sample, nfe = sampling.sb_sampler(
+                    sde, score_fn, Y, generator=generator,
+                    sampler_type="ode" if stype == "pc" else stype, noise=noise)
+        with span("enhance.post"):
+            x_hat = (self.to_audio(sample[:, 0], t_orig) * norm).cpu().numpy()  # host fence
         if squeeze:
             x_hat = x_hat[0]
         out = (x_hat,) if trajectory is None else (x_hat, trajectory)
         if timeit:
-            return (*out, nfe, (end - start) / (x_hat.shape[-1] / self.sr))
+            return (*out, nfe, (time.time() - start) / (x_hat.shape[-1] / self.sr))
         return out if trajectory is not None else x_hat
 
     def enhance_long(self, y_wav, chunk_seconds: float = 20.0, overlap: float = 0.1,
@@ -399,7 +402,7 @@ class ScoreModel(nn.Module):
         y_wav = np.asarray(y_wav, dtype=np.float32)
         if y_wav.ndim != 1:
             raise ValueError("enhance_long takes one utterance (L,)")
-        start = time.time()
+        start = time.time() if timeit else None
         chunk = int(chunk_seconds * self.sr)
         hop = int(chunk * (1.0 - overlap))
         if y_wav.shape[-1] <= chunk:

@@ -218,7 +218,7 @@ class DataParallelModel:
         kwargs["sde"] = kwargs.get("sde") or self.sde
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        start = time.time()
+        start = time.time() if timeit else None
         y = np.asarray(y_wav, dtype=np.float32)
         squeeze = y.ndim == 1
         y = y[None] if squeeze else y

@@ -29,6 +29,7 @@ import torch
 
 from .parallel.rows import all_sum
 from .sdes import SDE, SBVESDE, crandn
+from .utils.profiling import span
 from .utils.registry import Registry
 
 PredictorRegistry = Registry("Predictor")
@@ -194,13 +195,14 @@ def pc_sampler(
     batch = y.shape[0]
     xt_mean, trajectory = xt, []
     for i in range(n):
-        vec_t = timesteps[i].expand(batch)
-        xt, _ = corrector(xt, y, vec_t, generator,
-                          None if corrector_noise is None else corrector_noise[i])
-        xt, xt_mean = predictor(xt, y, vec_t, stepsizes[i], generator,
-                                noise[1 + i] if inject_steps else None)
-        if intermediate:
-            trajectory.append(xt)
+        with span("sampler.step"):
+            vec_t = timesteps[i].expand(batch)
+            xt, _ = corrector(xt, y, vec_t, generator,
+                              None if corrector_noise is None else corrector_noise[i])
+            xt, xt_mean = predictor(xt, y, vec_t, stepsizes[i], generator,
+                                    noise[1 + i] if inject_steps else None)
+            if intermediate:
+                trajectory.append(xt)
     result = xt_mean if denoise else xt
     if intermediate:
         result = (result, torch.stack(trajectory))
@@ -290,13 +292,14 @@ def ode_sampler(
         n = N if N is not None else sde.N
         ts = torch.linspace(sde.T, eps, n + 1, dtype=torch.float32, device=y.device)
         for i in range(n):
-            t0, t1 = ts[i], ts[i + 1]
-            h = t1 - t0  # negative: reverse time
-            k1 = drift_fn(x, t0)
-            k2 = drift_fn(x + 0.5 * h * k1, t0 + 0.5 * h)
-            k3 = drift_fn(x + 0.5 * h * k2, t0 + 0.5 * h)
-            k4 = drift_fn(x + h * k3, t1)
-            x = x + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+            with span("sampler.step"):
+                t0, t1 = ts[i], ts[i + 1]
+                h = t1 - t0  # negative: reverse time
+                k1 = drift_fn(x, t0)
+                k2 = drift_fn(x + 0.5 * h * k1, t0 + 0.5 * h)
+                k3 = drift_fn(x + 0.5 * h * k2, t0 + 0.5 * h)
+                k4 = drift_fn(x + h * k3, t1)
+                x = x + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
         nfe = 4 * n
     else:
         raise ValueError(f"Unknown ODE method: {method}")
@@ -325,36 +328,38 @@ def _rk45(drift_fn, x, t_start: float, eps: float, rtol: float, atol: float, max
     rejected = torch.tensor(False, device=device)
     nfe, steps, running = 2, 0, t_start > eps + 1e-8
     while running and steps < max_steps:
-        h = torch.maximum(h, eps - t)  # do not step past eps
-        ks = [k1]
-        for i in range(1, 6):
-            xi = x
-            for j, aij in enumerate(_DP_A[i]):
-                xi = xi + h * aij * ks[j]
-            ks.append(drift_fn(xi, t + _DP_C[i] * h))
-        x5 = x
-        for bi, ki in zip(_DP_B5[:6], ks):
-            x5 = x5 + h * bi * ki
-        k7 = drift_fn(x5, t + h)  # FSAL
-        ks.append(k7)
-        err = torch.zeros_like(x)
-        for b5, b4, ki in zip(_DP_B5, _DP_B4, ks):
-            err = err + h * (b5 - b4) * ki
-        err_scale = atol + rtol * torch.maximum(x.abs(), x5.abs())
-        enorm = _rms(err.abs() / err_scale)
-        accept = enorm <= 1.0
-        # scipy's controller: SAFETY 0.9, factors in [0.2, 10], exponent -1/5;
-        # zero error grows by 10; an acceptance right after a rejection does
-        # not grow the step.
-        factor = torch.where(enorm == 0.0, 10.0, torch.clamp(0.9 * enorm ** -0.2, 0.2, 10.0))
-        factor = torch.where(accept & rejected, torch.clamp(factor, max=1.0), factor)
-        t = torch.where(accept, t + h, t)
-        h = h * factor
-        rejected = ~accept
-        nfe, steps = nfe + 6, steps + 1
-        accepted, running = torch.stack([accept, t > eps + 1e-8]).tolist()  # one host read
-        if accepted:
-            x, k1 = x5, k7
+        with span("sampler.step"):  # one attempt, accepted or not
+            h = torch.maximum(h, eps - t)  # do not step past eps
+            ks = [k1]
+            for i in range(1, 6):
+                xi = x
+                for j, aij in enumerate(_DP_A[i]):
+                    xi = xi + h * aij * ks[j]
+                ks.append(drift_fn(xi, t + _DP_C[i] * h))
+            x5 = x
+            for bi, ki in zip(_DP_B5[:6], ks):
+                x5 = x5 + h * bi * ki
+            k7 = drift_fn(x5, t + h)  # FSAL
+            ks.append(k7)
+            err = torch.zeros_like(x)
+            for b5, b4, ki in zip(_DP_B5, _DP_B4, ks):
+                err = err + h * (b5 - b4) * ki
+            err_scale = atol + rtol * torch.maximum(x.abs(), x5.abs())
+            enorm = _rms(err.abs() / err_scale)
+            accept = enorm <= 1.0
+            # scipy's controller: SAFETY 0.9, factors in [0.2, 10], exponent -1/5;
+            # zero error grows by 10; an acceptance right after a rejection does
+            # not grow the step.
+            factor = torch.where(enorm == 0.0, 10.0,
+                                 torch.clamp(0.9 * enorm ** -0.2, 0.2, 10.0))
+            factor = torch.where(accept & rejected, torch.clamp(factor, max=1.0), factor)
+            t = torch.where(accept, t + h, t)
+            h = h * factor
+            rejected = ~accept
+            nfe, steps = nfe + 6, steps + 1
+            accepted, running = torch.stack([accept, t > eps + 1e-8]).tolist()  # one host read
+            if accepted:
+                x, k1 = x5, k7
     if running and float(t) > eps + 1e-6:
         warnings.warn(f"ODE sampler hit max_steps={max_steps} at t={float(t):.4f} before "
                       f"reaching t_eps={eps}; result is partially integrated. Raise "
@@ -396,27 +401,28 @@ def sb_sampler(
         time_steps[0].expand(batch))
     xt = y[:, :1] if sampler_type == "sde" else y
     for i in range(1, n + 1):
-        vec_t = time_steps[i].expand(batch)
-        sigma_t, sigma_T, sigma_bart, alpha_t, alpha_T, _ = sde.sigmas_alphas(vec_t)
-        est = model_fn(xt, y, vec_t)
-        if sampler_type == "sde":
-            weight_prev = alpha_t * sigma_t**2 / (alpha_prev * sigma_prev**2 + sde.eps)
-            tmp = 1.0 - sigma_t**2 / (sigma_prev**2 + sde.eps)
-            weight_estimate = alpha_t * tmp
-            xt = _bcast(weight_prev) * xt + _bcast(weight_estimate) * est
-            if i < n:  # the last step adds no noise
-                z = crandn(xt.shape, generator, xt.device) if noise is None else noise[i - 1]
-                xt = xt + _bcast(alpha_t * sigma_t * torch.sqrt(tmp)) * z
-        else:
-            weight_prev = (alpha_t * sigma_t * sigma_bart
-                           / (alpha_prev * sigma_prev * sigma_bar_prev + sde.eps))
-            weight_estimate = (alpha_t / (sigma_T**2 + sde.eps)
-                               * (sigma_bart**2
-                                  - sigma_bar_prev * sigma_t * sigma_bart / (sigma_prev + sde.eps)))
-            weight_prior_mean = (alpha_t / (alpha_T * sigma_T**2 + sde.eps)
-                                 * (sigma_t**2
-                                    - sigma_prev * sigma_t * sigma_bart / (sigma_bar_prev + sde.eps)))
-            xt = (_bcast(weight_prev) * xt + _bcast(weight_estimate) * est
-                  + _bcast(weight_prior_mean) * y)
-        alpha_prev, sigma_prev, sigma_bar_prev = alpha_t, sigma_t, sigma_bart
+        with span("sampler.step"):
+            vec_t = time_steps[i].expand(batch)
+            sigma_t, sigma_T, sigma_bart, alpha_t, alpha_T, _ = sde.sigmas_alphas(vec_t)
+            est = model_fn(xt, y, vec_t)
+            if sampler_type == "sde":
+                weight_prev = alpha_t * sigma_t**2 / (alpha_prev * sigma_prev**2 + sde.eps)
+                tmp = 1.0 - sigma_t**2 / (sigma_prev**2 + sde.eps)
+                weight_estimate = alpha_t * tmp
+                xt = _bcast(weight_prev) * xt + _bcast(weight_estimate) * est
+                if i < n:  # the last step adds no noise
+                    z = crandn(xt.shape, generator, xt.device) if noise is None else noise[i - 1]
+                    xt = xt + _bcast(alpha_t * sigma_t * torch.sqrt(tmp)) * z
+            else:
+                weight_prev = (alpha_t * sigma_t * sigma_bart
+                               / (alpha_prev * sigma_prev * sigma_bar_prev + sde.eps))
+                weight_estimate = (alpha_t / (sigma_T**2 + sde.eps)
+                                   * (sigma_bart**2 - sigma_bar_prev * sigma_t * sigma_bart
+                                      / (sigma_prev + sde.eps)))
+                weight_prior_mean = (alpha_t / (alpha_T * sigma_T**2 + sde.eps)
+                                     * (sigma_t**2 - sigma_prev * sigma_t * sigma_bart
+                                        / (sigma_bar_prev + sde.eps)))
+                xt = (_bcast(weight_prev) * xt + _bcast(weight_estimate) * est
+                      + _bcast(weight_prior_mean) * y)
+            alpha_prev, sigma_prev, sigma_bar_prev = alpha_t, sigma_t, sigma_bart
     return xt, n

@@ -79,6 +79,7 @@ from .parallel import dist as pdist
 from .sdes import SDERegistry, crandn
 from .utils.inference import evaluate_model, select_eval_files, shard_eval_files
 from .utils.loggers import Logger, make_logger
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -151,7 +152,7 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], ema_decay
     (``parallel.dist.average_all_``): once per update, as the mean over the
     ranks of each rank's mean is the mean of the global micro-batches."""
     k = state.accumulate_grad_batches
-    with torch.no_grad():
+    with span("train.optimizer"), torch.no_grad():
         if k > 1:
             if state.acc_grads is None:
                 state.acc_grads = {n: torch.zeros_like(g) for n, g in grads.items()}
@@ -171,9 +172,9 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], ema_decay
                 for acc in state.acc_grads.values():
                     acc.zero_()
                 state.mini_step = 0
-    state.num_updates += 1
-    state.step += 1
-    ema_update(state.ema_params, state.params, ema_decay, state.num_updates)
+        state.num_updates += 1
+        state.step += 1
+        ema_update(state.ema_params, state.params, ema_decay, state.num_updates)
 
 
 def _specs(model: ScoreModel, x_wav, y_wav):
@@ -199,7 +200,8 @@ def compute_gradients(model: ScoreModel, state: TrainState, x_wav, y_wav,
     names = [n for n, p in state.params.items() if p.requires_grad]
     with parallel.global_rows(parallel.rank(), parallel.world()):
         loss = model.step_loss(x, y, generator)
-    grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names])
     return loss.detach(), dict(zip(names, grads))
 
 
@@ -210,8 +212,9 @@ def train_step(model: ScoreModel, state: TrainState, x_wav, y_wav,
     the EMA (:func:`apply_gradients`, which averages the gradients over the
     ranks). Returns this rank's loss (a device scalar: reading it waits for
     the step)."""
-    loss, grads = compute_gradients(model, state, x_wav, y_wav, generator)
-    apply_gradients(state, grads, model.ema_decay)
+    with span("train.step"):
+        loss, grads = compute_gradients(model, state, x_wav, y_wav, generator)
+        apply_gradients(state, grads, model.ema_decay)
     return loss
 
 

@@ -7,6 +7,8 @@ in PyTorch's idiom:
   done);
 - :func:`trace`: a ``torch.profiler`` trace of a block (host, and the card's
   kernels where CUDA is in use), written as a Chrome trace;
+- :func:`span`: the port's own named spans (``sgmse.<name>``) in such a
+  trace, at no cost beyond one check where no profiler runs;
 - :func:`debug_nans`: autograd's anomaly mode for a block (the backward pass
   that produced a NaN raises, naming the forward op), as ``jax_debug_nans``
   is JAX's.
@@ -19,6 +21,28 @@ from pathlib import Path
 from typing import Callable, Dict
 
 import torch
+
+_OFF = contextlib.nullcontext()  # the one span of every call while no profiler runs
+
+
+def span(name: str):
+    """A context manager marking one stage of the port in a profiler's trace:
+    ``torch.profiler.record_function("sgmse." + name)`` while a profiler runs
+    on this thread, so that the stage is a host event on the clock of the
+    card's kernels; otherwise one shared no-op, after one check of the
+    profiler's state (``record_function`` costs microseconds a call even
+    where nothing records it).
+
+    The spans and what they cover: ``enhance.prep`` (host-to-device copy,
+    normalisation, STFT, padding), ``sampler`` (the sampler call),
+    ``sampler.step`` (one step of a sampler, or one rk45 attempt),
+    ``net`` (one evaluation of the score network, ``ScoreModel.forward``),
+    ``enhance.post`` (inverse transform, iSTFT, readback), ``data.epoch``
+    (a loader epoch's prologue), ``data.wait`` (waiting for one loaded
+    batch), ``train.step``, ``train.backward``, ``train.optimizer``."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function("sgmse." + name)
 
 
 def _fence() -> None:
