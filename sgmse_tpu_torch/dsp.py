@@ -167,17 +167,27 @@ class SpecTransform:
         self.hop_length = hop_length
         self.window_type = window
         self.window = get_window(window, n_fft)
+        self._windows = {}  # device -> the window there
         self.transform_type = transform_type
         self.spec_factor = spec_factor
         self.spec_abs_exponent = spec_abs_exponent
         self.num_frames = num_frames
 
     # --- waveform <-> complex spectrogram -------------------------------------------------
+    def _window_on(self, device: torch.device) -> torch.Tensor:
+        """The window on ``device``, copied there on first use only: a copy from
+        the host at every call would make the host wait for the device."""
+        w = self._windows.get(device)
+        if w is None:
+            w = self._windows[device] = self.window.to(device)
+        return w
+
     def stft(self, sig: torch.Tensor) -> torch.Tensor:
-        return stft(sig, self.n_fft, self.hop_length, self.window)
+        return stft(sig, self.n_fft, self.hop_length, self._window_on(sig.device))
 
     def istft(self, spec: torch.Tensor, length: Optional[int] = None) -> torch.Tensor:
-        return istft(spec, self.n_fft, self.hop_length, self.window, length=length)
+        return istft(spec, self.n_fft, self.hop_length, self._window_on(spec.device),
+                     length=length)
 
     # --- compression transform ------------------------------------------------------------
     def spec_fwd(self, spec: torch.Tensor) -> torch.Tensor:

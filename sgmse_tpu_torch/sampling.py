@@ -397,32 +397,38 @@ def sb_sampler(
         raise ValueError(f"step noise must have N = {n} entries, got {noise.shape[0]}")
     batch = y.shape[0]
     time_steps = torch.linspace(sde.T, eps, n + 1, dtype=torch.float32, device=y.device)
-    sigma_prev, _, sigma_bar_prev, alpha_prev, _, _ = sde.sigmas_alphas(
-        time_steps[0].expand(batch))
+    # The weights depend on the time grid alone: one (N,) vector each, computed
+    # once per call on the device, so a step launches only its update. Step i
+    # reads entry i - 1: "t" is grid point i, "prev" grid point i - 1.
+    sigma, sigma_T, sigma_bar, alpha, alpha_T, _ = sde.sigmas_alphas(time_steps)
+    sigma_prev, sigma_bar_prev, alpha_prev = sigma[:-1], sigma_bar[:-1], alpha[:-1]
+    sigma_t, sigma_T, sigma_bart, alpha_t, alpha_T = (
+        sigma[1:], sigma_T[1:], sigma_bar[1:], alpha[1:], alpha_T[1:])
+    if sampler_type == "sde":
+        weight_prev = alpha_t * sigma_t**2 / (alpha_prev * sigma_prev**2 + sde.eps)
+        tmp = 1.0 - sigma_t**2 / (sigma_prev**2 + sde.eps)
+        weights = (weight_prev, alpha_t * tmp, alpha_t * sigma_t * torch.sqrt(tmp))
+    else:
+        weight_prev = (alpha_t * sigma_t * sigma_bart
+                       / (alpha_prev * sigma_prev * sigma_bar_prev + sde.eps))
+        weight_estimate = (alpha_t / (sigma_T**2 + sde.eps)
+                           * (sigma_bart**2 - sigma_bar_prev * sigma_t * sigma_bart
+                              / (sigma_prev + sde.eps)))
+        weight_prior_mean = (alpha_t / (alpha_T * sigma_T**2 + sde.eps)
+                             * (sigma_t**2 - sigma_prev * sigma_t * sigma_bart
+                                / (sigma_bar_prev + sde.eps)))
+        weights = (weight_prev, weight_estimate, weight_prior_mean)
     xt = y[:, :1] if sampler_type == "sde" else y
     for i in range(1, n + 1):
         with span("sampler.step"):
             vec_t = time_steps[i].expand(batch)
-            sigma_t, sigma_T, sigma_bart, alpha_t, alpha_T, _ = sde.sigmas_alphas(vec_t)
+            w_prev, w_est, w_last = (_bcast(w[i - 1].expand(batch)) for w in weights)
             est = model_fn(xt, y, vec_t)
             if sampler_type == "sde":
-                weight_prev = alpha_t * sigma_t**2 / (alpha_prev * sigma_prev**2 + sde.eps)
-                tmp = 1.0 - sigma_t**2 / (sigma_prev**2 + sde.eps)
-                weight_estimate = alpha_t * tmp
-                xt = _bcast(weight_prev) * xt + _bcast(weight_estimate) * est
+                xt = w_prev * xt + w_est * est
                 if i < n:  # the last step adds no noise
                     z = crandn(xt.shape, generator, xt.device) if noise is None else noise[i - 1]
-                    xt = xt + _bcast(alpha_t * sigma_t * torch.sqrt(tmp)) * z
+                    xt = xt + w_last * z
             else:
-                weight_prev = (alpha_t * sigma_t * sigma_bart
-                               / (alpha_prev * sigma_prev * sigma_bar_prev + sde.eps))
-                weight_estimate = (alpha_t / (sigma_T**2 + sde.eps)
-                                   * (sigma_bart**2 - sigma_bar_prev * sigma_t * sigma_bart
-                                      / (sigma_prev + sde.eps)))
-                weight_prior_mean = (alpha_t / (alpha_T * sigma_T**2 + sde.eps)
-                                     * (sigma_t**2 - sigma_prev * sigma_t * sigma_bart
-                                        / (sigma_bar_prev + sde.eps)))
-                xt = (_bcast(weight_prev) * xt + _bcast(weight_estimate) * est
-                      + _bcast(weight_prior_mean) * y)
-            alpha_prev, sigma_prev, sigma_bar_prev = alpha_t, sigma_t, sigma_bart
+                xt = w_prev * xt + w_est * est + w_last * y
     return xt, n

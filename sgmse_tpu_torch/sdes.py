@@ -195,9 +195,8 @@ class SBVESDE(SDE):
         alpha_T = torch.ones_like(t)
         two_log_k = 2.0 * math.log(self.k)
         sigma_t = torch.sqrt(self.c * torch.expm1(two_log_k * t) / two_log_k)
-        sigma_T2 = torch.tensor(self.c * math.expm1(two_log_k * self.T) / two_log_k,
-                                dtype=torch.float32, device=t.device)
-        sigma_T = torch.sqrt(sigma_T2) * torch.ones_like(t)
+        # A fill, not a tensor from a Python float: that copy would drain the stream.
+        sigma_T = torch.full_like(t, self.c * math.expm1(two_log_k * self.T) / two_log_k).sqrt()
         alpha_bart = alpha_t / (alpha_T + self.eps)
         var_diff = self.c * torch.exp(two_log_k * t) * torch.expm1(two_log_k * (self.T - t)) \
             / two_log_k

@@ -12,7 +12,8 @@ Tolerances, relative to max|plain|: float32 2e-5 (sums in another order),
 bfloat16 2^-7 (one bf16 rounding step). The backward kernels (K2b and the K1
 adjoint) are held the same way; K2b's float32 outputs (dgamma, dbeta, and all
 of them for float32 inputs) to 1e-4, its sums running over up to B*H*W terms
-per channel in another order.
+per channel in another order. Beside them, one test holds the bridge sampler
+and its training loss to making no synchronising call.
 """
 import numpy as np
 import pytest
@@ -362,3 +363,40 @@ def test_first_launches_from_many_threads(dev):
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["ok"] and out["launches"] == {"upfirdn2d": 16, "group_norm_act": 16}
+
+
+def test_bridge_sampler_and_loss_never_block_the_host(dev):
+    """The bridge sampler's steps (``ode``, and ``sde`` drawing its noise on the
+    card) and an SBVE model's ``step_loss`` make no synchronising call: under
+    ``torch.cuda.set_sync_debug_mode("error")`` any would raise. One untimed run
+    first builds the kernels and fills the allocator."""
+    from sgmse_tpu_torch import sampling, sdes
+    from sgmse_tpu_torch.model import ScoreModel
+
+    model = ScoreModel("ncsnpp_v2", "sbve", nf=16, ch_mult=(1, 1, 2), num_res_blocks=1,
+                       attn_resolutions=(16,), image_size=64, init_scale=1.0, n_fft=126,
+                       hop_length=32, loss_type="data_prediction")
+    model.init_params(torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last).train()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, y = (sdes.crandn((2, 1, 64, 64), gen) for _ in range(2))
+    x0 = x[:1].expand(3, -1, -1, -1)
+    sde = sdes.SBVESDE(N=6)
+
+    def model_fn(xt, yt, t):
+        return x0 + 0.1 * t[:, None, None, None] * (xt - yt)
+
+    def run():
+        loss = model.step_loss(x, y, gen)
+        outs = [sampling.sb_sampler(sde, model_fn, y[:1].expand(3, -1, -1, -1), gen,
+                                    sampler_type=s)[0] for s in ("ode", "sde")]
+        return loss, outs
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, outs = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(loss) and all(torch.isfinite(o).all() for o in outs)

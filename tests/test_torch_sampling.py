@@ -233,3 +233,73 @@ def test_sb_sde_matches_jax_with_its_noise(problem, n, rtol):
                                     sampler_type="sde", noise=torch.from_numpy(z))
     assert pnfe == nfe == n
     _close(got, ref, rtol)
+
+
+def _sb_per_step(sde, model_fn, y, eps=1e-4, sampler_type="ode", noise=None):
+    """The bridge sampler with its schedule evaluated anew at every step: the
+    loop ``sampling.sb_sampler`` ran before it took its weights from one table."""
+    n = sde.N
+    batch = y.shape[0]
+    time_steps = torch.linspace(sde.T, eps, n + 1, dtype=torch.float32, device=y.device)
+    sigma_prev, _, sigma_bar_prev, alpha_prev, _, _ = sde.sigmas_alphas(
+        time_steps[0].expand(batch))
+    xt = y[:, :1] if sampler_type == "sde" else y
+    for i in range(1, n + 1):
+        vec_t = time_steps[i].expand(batch)
+        sigma_t, sigma_T, sigma_bart, alpha_t, alpha_T, _ = sde.sigmas_alphas(vec_t)
+        est = model_fn(xt, y, vec_t)
+        if sampler_type == "sde":
+            weight_prev = alpha_t * sigma_t**2 / (alpha_prev * sigma_prev**2 + sde.eps)
+            tmp = 1.0 - sigma_t**2 / (sigma_prev**2 + sde.eps)
+            weight_estimate = alpha_t * tmp
+            xt = sampling._bcast(weight_prev) * xt + sampling._bcast(weight_estimate) * est
+            if i < n:  # the last step adds no noise
+                xt = xt + sampling._bcast(alpha_t * sigma_t * torch.sqrt(tmp)) * noise[i - 1]
+        else:
+            weight_prev = (alpha_t * sigma_t * sigma_bart
+                           / (alpha_prev * sigma_prev * sigma_bar_prev + sde.eps))
+            weight_estimate = (alpha_t / (sigma_T**2 + sde.eps)
+                               * (sigma_bart**2 - sigma_bar_prev * sigma_t * sigma_bart
+                                  / (sigma_prev + sde.eps)))
+            weight_prior_mean = (alpha_t / (alpha_T * sigma_T**2 + sde.eps)
+                                 * (sigma_t**2 - sigma_prev * sigma_t * sigma_bart
+                                    / (sigma_bar_prev + sde.eps)))
+            xt = (sampling._bcast(weight_prev) * xt + sampling._bcast(weight_estimate) * est
+                  + sampling._bcast(weight_prior_mean) * y)
+        alpha_prev, sigma_prev, sigma_bar_prev = alpha_t, sigma_t, sigma_bart
+    return xt
+
+
+@pytest.mark.parametrize("n", [7, 50])
+@pytest.mark.parametrize("sampler_type", ["ode", "sde"])
+def test_sb_schedule_table_matches_per_step_schedule(sampler_type, n):
+    """The weights taken from one table per call give the per-step loop's bits."""
+    shape = (3, 1, 8, 6)
+    x0, y = torch.from_numpy(_cplx(50, shape, 0.3)), torch.from_numpy(_cplx(51, shape, 0.3))
+    noise = (torch.from_numpy(np.stack([_cplx(60 + i, shape) for i in range(n)]))
+             if sampler_type == "sde" else None)
+    sde = sdes.SBVESDE(N=n)
+    got, nfe = sampling.sb_sampler(sde, _sb_oracle(x0), y, sampler_type=sampler_type,
+                                   noise=noise)
+    want = _sb_per_step(sde, _sb_oracle(x0), y, sampler_type=sampler_type, noise=noise)
+    assert nfe == n and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sampler_type", ["ode", "sde"])
+def test_sb_sampler_evaluates_its_schedule_once(monkeypatch, sampler_type):
+    """One schedule evaluation per sampler call, whatever N (N + 1 when each step
+    evaluated its own)."""
+    calls = []
+    schedule = sdes.SBVESDE.sigmas_alphas
+
+    def counted(self, t):
+        calls.append(t.shape)
+        return schedule(self, t)
+
+    monkeypatch.setattr(sdes.SBVESDE, "sigmas_alphas", counted)
+    x0, y = torch.from_numpy(_cplx(52, scale=0.3)), torch.from_numpy(_cplx(53, scale=0.3))
+    for n in (4, 9):
+        calls.clear()
+        sampling.sb_sampler(sdes.SBVESDE(N=n), _sb_oracle(x0), y, sampler_type=sampler_type,
+                            generator=torch.Generator().manual_seed(0))
+        assert calls == [(n + 1,)]

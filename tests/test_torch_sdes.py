@@ -111,6 +111,18 @@ def test_sbve_tables_mean_std_and_sde():
         _close(g, w)
 
 
+def test_sbve_schedule_on_a_grid_matches_per_element_calls():
+    """The samplers' grid, in one call, gives each point's bits alone or repeated
+    over a batch, as the per-step calls took it."""
+    port = sdes.SBVESDE()
+    grid = torch.linspace(port.T, 1e-4, port.N + 1, dtype=torch.float32)
+    table = port.sigmas_alphas(grid)
+    for i in range(len(grid)):
+        for t in (grid[i:i + 1], grid[i].expand(3)):
+            for g, w in zip(port.sigmas_alphas(t), table):
+                assert torch.equal(g, w[i].expand(len(t))), i
+
+
 def test_sbve_prior_is_y():
     y = torch.from_numpy(_state(6))
     assert sdes.SBVESDE().prior_sampling(y, torch.Generator().manual_seed(0)) is y
