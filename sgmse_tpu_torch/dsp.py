@@ -125,6 +125,11 @@ def spec_back(spec: torch.Tensor, transform_type: str = "exponent", spec_factor:
     raise ValueError(f"Unknown transform_type {transform_type}")
 
 
+def pad_length(t: int, multiple: int = 64) -> int:
+    """The frames :func:`pad_spec` makes of ``t``: ``t`` rounded up to a multiple."""
+    return t + (-t) % multiple
+
+
 def pad_spec(spec: torch.Tensor, mode: str = "zero_pad", multiple: int = 64) -> torch.Tensor:
     """Pad the last (time-frame) axis to a multiple of `multiple`.
 
@@ -133,7 +138,7 @@ def pad_spec(spec: torch.Tensor, mode: str = "zero_pad", multiple: int = 64) -> 
     the spectrogram reflects again at each end, so it takes any T.
     """
     t = spec.shape[-1]
-    num_pad = (-t) % multiple
+    num_pad = pad_length(t, multiple) - t
     if num_pad == 0:
         return spec
     if mode == "zero_pad":
@@ -184,6 +189,10 @@ class SpecTransform:
 
     def stft(self, sig: torch.Tensor) -> torch.Tensor:
         return stft(sig, self.n_fft, self.hop_length, self._window_on(sig.device))
+
+    def frames(self, length: int) -> int:
+        """The frames :meth:`stft` gives a signal of ``length`` samples."""
+        return (length + 2 * (self.n_fft // 2) - self.n_fft) // self.hop_length + 1
 
     def istft(self, spec: torch.Tensor, length: Optional[int] = None) -> torch.Tensor:
         return istft(spec, self.n_fft, self.hop_length, self._window_on(spec.device),

@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -156,19 +157,26 @@ def build_model(args) -> ScoreModel:
     return model
 
 
-def warm_up(model: ScoreModel, shapes, generator, sampler_kwargs) -> int:
+def warm_up(model: ScoreModel, shapes, generator, sampler_kwargs,
+            chunk_seconds=None) -> int:
     """Run every input shape once, one step long, so that kernel builds, cuDNN
     set-up and allocator growth happen before the clock starts. The
     Schroedinger-bridge sampler runs ``sde.N`` steps whatever ``N`` says, so
     a shortened copy of the SDE is passed down (the model's is left as it is);
-    rk45 stops after one step. Returns the NFE."""
+    rk45 stops after one step. With ``chunk_seconds`` each shape runs as one
+    chunk of ``enhance_long``, so that the CUDA graphs it replays are captured
+    here too. Returns the NFE."""
     nfe, short = 0, dict(sampler_kwargs, N=1, max_steps=1,
                          sde=dataclasses.replace(model.sde, N=1))
+    if chunk_seconds is not None:
+        run = functools.partial(model.enhance_long, chunk_seconds=chunk_seconds)
+    else:
+        run = model.enhance
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="ODE sampler hit max_steps")
         for shape in sorted(shapes):
-            nfe += model.enhance(np.zeros(shape, np.float32), generator=generator,
-                                 timeit=True, **short)[1]
+            nfe += run(np.zeros(shape, np.float32), generator=generator, timeit=True,
+                       **short)[1]
     return nfe
 
 
@@ -220,7 +228,8 @@ def _run(args, model, device) -> dict:
     else:
         chunks = _chunks(items, args.batch_size, model.spec.hop_length)
         shapes = {(len(c), max(len(y) for _, y in c)) for c in chunks}
-    warm_nfe = warm_up(model, shapes, generator, sampler_kwargs) if args.timeit else 0
+    warm_nfe = (warm_up(model, shapes, generator, sampler_kwargs, args.chunk_seconds)
+                if args.timeit else 0)
 
     total_audio_s, nfe_total, all_finite = 0.0, 0, True
     if device.type == "cuda":

@@ -30,10 +30,13 @@ sampling) uses them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import math
+import threading
 import time
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -41,7 +44,7 @@ import torch
 import torch.nn as nn
 
 from . import sampling
-from .dsp import SpecTransform, pad_spec
+from .dsp import SpecTransform, pad_length, pad_spec
 from .models import BackboneRegistry
 from .parallel.rows import draw
 from .sdes import SDERegistry, crandn
@@ -51,6 +54,28 @@ from .utils.profiling import span
 _SPEC_KEYS = ("n_fft", "hop_length", "window", "transform_type", "spec_factor",
               "spec_abs_exponent", "num_frames")
 PORTED = {"backbone": ("ncsnpp", "ncsnpp_v2", "ncsnpp_48k", "dcunet"), "sde": ("ouve", "sbve")}
+# What ``ScoreModel.enhance_long`` has handed to its sampler in this process:
+# calls, chunks, input samples, and the samples the sampler enhanced (each
+# chunk's padded frames times the STFT hop: the overlap, the last chunk's
+# padding past the recording and the frame padding to a multiple of 64).
+LONG_SERVED = {"calls": 0, "chunks": 0, "input_samples": 0, "enhanced_samples": 0}
+_long_lock = threading.Lock()
+# The ``enhance_long`` calls open on this thread (``depth``): under one, the
+# network's evaluations on a CUDA device are replayed from CUDA graphs.
+_LONG = threading.local()
+# Each model's captured evaluations, by weights, stream, shapes and dtypes:
+# (graph, its input buffers, its output buffer).
+_GRAPHS: "weakref.WeakKeyDictionary[nn.Module, dict]" = weakref.WeakKeyDictionary()
+
+
+@contextlib.contextmanager
+def _in_long():
+    """One ``enhance_long`` call open on this thread, for the duration."""
+    _LONG.depth = getattr(_LONG, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _LONG.depth -= 1
 
 
 def _bcast(c):
@@ -230,8 +255,59 @@ class ScoreModel(nn.Module):
             raise ValueError(f"Invalid loss type: {self.loss_type}")
 
     def score_fn(self):
-        """score_fn(x, y, t) for the samplers."""
+        """score_fn(x, y, t) for the samplers: :meth:`forward`, or inside
+        ``enhance_long``, in ``eval()`` mode on a CUDA device, its replay from a
+        CUDA graph (:meth:`_graphed`)."""
+        if getattr(_LONG, "depth", 0) and not self.training and self.device.type == "cuda":
+            return self._graphed()
         return self.forward
+
+    def _graphed(self):
+        """:meth:`forward` replayed from a CUDA graph, captured at the first
+        evaluation of each input shape on each stream (serving threads each
+        have their own). A graph reads the parameters where they are stored:
+        weights loaded in place are seen; parameters moved to new storage get
+        new graphs, and the old ones are dropped. One replay, with the copies
+        of its inputs and output, is one ``net`` span.
+
+        A long recording's chunks all have one shape, and at one row an
+        evaluation of the 48 kHz network (~1,040 launches) takes the host
+        longer than the card's work: a replay is one launch, so the card sets
+        the pace."""
+        weights = tuple(p.data_ptr() for p in self.parameters())
+        graphs = _GRAPHS.setdefault(self, {})
+
+        def evaluate(x_t, y, t):
+            args = (x_t, y, t)
+            stream = torch.cuda.current_stream(x_t.device).cuda_stream
+            key = (weights, stream, *((a.shape, a.dtype) for a in args))
+            entry = graphs.get(key)
+            if entry is None:
+                for old in [k for k in graphs if k[0] != weights]:
+                    del graphs[old]
+                entry = graphs[key] = self._capture(args)
+            graph, inputs, out = entry
+            with span("net"):
+                for buf, a in zip(inputs, args):
+                    buf.copy_(a)
+                graph.replay()
+                return out.clone()
+
+        return evaluate
+
+    def _capture(self, args):
+        """(graph, input buffers, output buffer) of one :meth:`forward` at
+        ``args``' shapes. One evaluation runs first, outside the graph, so that
+        kernel builds, cuDNN's plans and the allocator's growth stay out of
+        it; the capture has a stream of its own and leaves other threads'
+        launches alone."""
+        inputs = [a.clone() for a in args]
+        self.forward(*inputs)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(inputs[0].device),
+                              capture_error_mode="thread_local"):
+            out = self.forward(*inputs)
+        return graph, inputs, out
 
     # --- losses ------------------------------------------------------------------------
     def _loss(self, forward_out, x_t, z, t, mean, x):
@@ -395,7 +471,11 @@ class ScoreModel(nn.Module):
         The chunks draw their noise from ``generator`` in order. ``kwargs`` go
         to :meth:`enhance`, or to ``enhance`` where one is given (the
         data-parallel pool's, ``parallel.pool``). Returns the waveform, or
-        ``(x_hat, nfe, rtf)`` with ``timeit``."""
+        ``(x_hat, nfe, rtf)`` with ``timeit``. The call is one ``enhance.long``
+        span, each chunk's crossfade and overlap-add one ``enhance.long.merge``
+        span, and its work is counted in ``LONG_SERVED``. On a CUDA device the
+        chunks' network evaluations are replayed from CUDA graphs
+        (:meth:`score_fn`)."""
         enhance = self.enhance if enhance is None else enhance
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -403,37 +483,51 @@ class ScoreModel(nn.Module):
         if y_wav.ndim != 1:
             raise ValueError("enhance_long takes one utterance (L,)")
         start = time.time() if timeit else None
-        chunk = int(chunk_seconds * self.sr)
-        hop = int(chunk * (1.0 - overlap))
-        if y_wav.shape[-1] <= chunk:
-            out, nfe, _ = enhance(y_wav, generator=generator, timeit=True, **kwargs)
-        else:
-            n_chunks = 1 + math.ceil(max(y_wav.shape[-1] - chunk, 0) / hop)
-            total = (n_chunks - 1) * hop + chunk
-            y_pad = np.pad(y_wav, (0, total - y_wav.shape[-1]))
-            out = np.zeros(total, dtype=np.float32)
-            weight = np.zeros(total, dtype=np.float32)
-            ramp = chunk - hop  # crossfade length
-            win = np.ones(chunk, dtype=np.float32)
-            if ramp > 0:
-                win[:ramp] = np.linspace(0.0, 1.0, ramp, endpoint=False)
-                win[-ramp:] = np.linspace(1.0, 0.0, ramp, endpoint=False)
-            nfe = 0
-            for i in range(n_chunks):
-                seg = y_pad[i * hop: i * hop + chunk]
-                x_hat, n, _ = enhance(seg, generator=generator, timeit=True, **kwargs)
-                nfe += n
-                w = win.copy()
-                if i == 0 and ramp > 0:
-                    w[:ramp] = 1.0  # no fade-in on the first chunk
-                if i == n_chunks - 1 and ramp > 0:
-                    w[-ramp:] = 1.0  # no fade-out on the last chunk
-                out[i * hop: i * hop + chunk] += x_hat * w
-                weight[i * hop: i * hop + chunk] += w
-            out = (out / np.maximum(weight, 1e-8))[: y_wav.shape[-1]]
+        with _in_long(), span("enhance.long"):
+            chunk = int(chunk_seconds * self.sr)
+            hop = int(chunk * (1.0 - overlap))
+            length = y_wav.shape[-1]
+            n_chunks = 1 if length <= chunk else 1 + math.ceil((length - chunk) / hop)
+            self._count_long(length, min(length, chunk), n_chunks)
+            if n_chunks == 1:
+                out, nfe, _ = enhance(y_wav, generator=generator, timeit=True, **kwargs)
+            else:
+                total = (n_chunks - 1) * hop + chunk
+                y_pad = np.pad(y_wav, (0, total - length))
+                out = np.zeros(total, dtype=np.float32)
+                weight = np.zeros(total, dtype=np.float32)
+                ramp = chunk - hop  # crossfade length
+                win = np.ones(chunk, dtype=np.float32)
+                if ramp > 0:
+                    win[:ramp] = np.linspace(0.0, 1.0, ramp, endpoint=False)
+                    win[-ramp:] = np.linspace(1.0, 0.0, ramp, endpoint=False)
+                nfe = 0
+                for i in range(n_chunks):
+                    seg = y_pad[i * hop: i * hop + chunk]
+                    x_hat, n, _ = enhance(seg, generator=generator, timeit=True, **kwargs)
+                    nfe += n
+                    with span("enhance.long.merge"):
+                        w = win.copy()
+                        if i == 0 and ramp > 0:
+                            w[:ramp] = 1.0  # no fade-in on the first chunk
+                        if i == n_chunks - 1 and ramp > 0:
+                            w[-ramp:] = 1.0  # no fade-out on the last chunk
+                        out[i * hop: i * hop + chunk] += x_hat * w
+                        weight[i * hop: i * hop + chunk] += w
+                out = (out / np.maximum(weight, 1e-8))[:length]
         if timeit:
-            return out, nfe, (time.time() - start) / (y_wav.shape[-1] / self.sr)
+            return out, nfe, (time.time() - start) / (length / self.sr)
         return out
+
+    def _count_long(self, length: int, chunk: int, n_chunks: int) -> None:
+        """Add one ``enhance_long`` call of ``n_chunks`` chunks of ``chunk``
+        samples over ``length`` input samples to ``LONG_SERVED``."""
+        padded = pad_length(self.spec.frames(chunk))  # as enhance's prep pads them
+        with _long_lock:
+            LONG_SERVED["calls"] += 1
+            LONG_SERVED["chunks"] += n_chunks
+            LONG_SERVED["input_samples"] += length
+            LONG_SERVED["enhanced_samples"] += n_chunks * padded * self.spec.hop_length
 
     # --- config round trip (the config.json of a JAX checkpoint) -------------------------
     def config_dict(self) -> dict:

@@ -36,10 +36,15 @@ def span(name: str):
     The spans and what they cover: ``enhance.prep`` (host-to-device copy,
     normalisation, STFT, padding), ``sampler`` (the sampler call),
     ``sampler.step`` (one step of a sampler, or one rk45 attempt),
-    ``net`` (one evaluation of the score network, ``ScoreModel.forward``),
-    ``enhance.post`` (inverse transform, iSTFT, readback), ``data.epoch``
-    (a loader epoch's prologue), ``data.wait`` (waiting for one loaded
-    batch), ``train.step``, ``train.backward``, ``train.optimizer``."""
+    ``net`` (one evaluation of the score network, ``ScoreModel.forward``, or
+    inside ``enhance_long`` on a card its replay from a CUDA graph),
+    ``enhance.post`` (inverse transform, iSTFT, readback), ``enhance.long``
+    (one ``ScoreModel.enhance_long`` call, its chunks' enhancement inside),
+    ``enhance.long.merge`` (one chunk's crossfade and overlap-add on the
+    host; ``model.LONG_SERVED`` counts the calls, chunks and samples),
+    ``data.epoch`` (a loader epoch's prologue), ``data.wait`` (waiting for
+    one loaded batch), ``train.step``, ``train.backward``,
+    ``train.optimizer``."""
     if not torch._C._autograd._profiler_enabled():
         return _OFF
     return torch.profiler.record_function("sgmse." + name)

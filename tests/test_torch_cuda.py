@@ -400,3 +400,39 @@ def test_bridge_sampler_and_loss_never_block_the_host(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(loss) and all(torch.isfinite(o).all() for o in outs)
+
+
+def test_long_path_replays_the_network_from_cuda_graphs(dev):
+    """Inside ``enhance_long`` the network's evaluations are replayed from one
+    CUDA graph per chunk shape: the output equals ``enhance``'s plain
+    evaluations bit for bit (the same kernels), three chunks capture once, and
+    weights loaded in place are seen by the replay."""
+    from sgmse_tpu_torch import model as port_model
+    from sgmse_tpu_torch.model import ScoreModel
+
+    net = dict(nf=16, ch_mult=(1, 2, 2), num_res_blocks=1, fir_kernel=(1, 3, 3, 1),
+               precision="bfloat16")
+    model = ScoreModel("ncsnpp_48k", "ouve", sr=16000, n_fft=62, hop_length=16, N=3, **net)
+    model.init_params(torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    y = np.random.default_rng(0).standard_normal(2300).astype(np.float32) * 0.3
+    kw = dict(N=3, pad_mode="reflection")
+
+    def plain(seg, seed):
+        return model.enhance(seg, generator=torch.Generator(device=dev).manual_seed(seed), **kw)
+
+    def graphed(seg, seed, seconds):
+        return model.enhance_long(seg, chunk_seconds=seconds, overlap=0.1,
+                                  generator=torch.Generator(device=dev).manual_seed(seed), **kw)
+
+    seg = y[:960]
+    np.testing.assert_array_equal(graphed(seg, 1, 0.06), plain(seg, 1))
+    assert len(port_model._GRAPHS[model]) == 1
+    first = graphed(y, 2, 0.06)  # three chunks of 960 samples, one shape
+    assert len(port_model._GRAPHS[model]) == 1 and np.isfinite(first).all()
+    np.testing.assert_array_equal(graphed(y, 2, 0.06), first)
+    other = ScoreModel("ncsnpp_48k", "ouve", sr=16000, n_fft=62, hop_length=16, N=3, **net)
+    other.init_params(torch.Generator().manual_seed(1))
+    model.dnn.load_state_dict(other.dnn.state_dict())  # copied into the same storage
+    np.testing.assert_array_equal(graphed(seg, 1, 0.06), plain(seg, 1))
+    assert len(port_model._GRAPHS[model]) == 1

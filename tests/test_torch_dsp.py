@@ -104,3 +104,15 @@ def test_pad_spec_reflection_of_short_inputs(frames):
     got = dsp.pad_spec(torch.from_numpy(z), mode="reflection").numpy()
     np.testing.assert_array_equal(got, np.asarray(jdsp.pad_spec(jnp.asarray(z), mode="reflection")))
     assert got.shape[-1] == 64 * -(-frames // 64)
+
+
+@pytest.mark.parametrize("n_fft,hop,length", [(62, 16, 700), (62, 16, 960), (1534, 384, 192000),
+                                              (510, 128, 2015), (63, 16, 100)])
+def test_frame_counts_match_the_transforms(n_fft, hop, length):
+    """``SpecTransform.frames`` is the STFT's frame count and ``pad_length``
+    is ``pad_spec``'s, for even and odd windows and any length."""
+    spec = dsp.SpecTransform(n_fft=n_fft, hop_length=hop)
+    frames = spec.stft(torch.zeros(1, length)).shape[-1]
+    assert spec.frames(length) == frames
+    padded = dsp.pad_spec(torch.zeros(1, 1, 2, frames), mode="reflection").shape[-1]
+    assert dsp.pad_length(frames) == padded and padded % 64 == 0
