@@ -14,15 +14,17 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    same calls) and the full-width ``ncsnpp_48k`` (F=768, T=256): hold each
    kernel against its plain PyTorch version at every call signature the
    network gives it (group_norm_act with and without its pre-bias, upfirdn2d
-   single and paired), in float32 and bfloat16; check that group_norm_act
+   single and paired, residual_merge (K8) bit for bit: the network's biases
+   fold into K2 and K8 where no gradient is recorded), in float32 and
+   bfloat16; check that group_norm_act
    repeats bit for bit; check each library yardstick against the plain
    version of the function it computes; then time kernel, plain and library
    in bfloat16 as device time (CUDA graphs of 25 back-to-back calls,
    ``sgmse_tpu_torch.kernel_times``) beside each call's byte/operation bound;
 4. the same two networks' full forward (seeded weights) through the kernels
    and through the plain versions, float32: relative error, and the launch
-   counts per forward (flagship 24 upfirdn2d and 109 group_norm_act; 48 kHz
-   12 and 100);
+   counts per forward (flagship 24 upfirdn2d, 109 group_norm_act and 59
+   residual_merge; 48 kHz 12, 100 and 50);
 5. the flagship main path through the entry point ``sgmse_tpu_torch.enhance``
    on four 2.04-s wavs (PC N=30, ald corrector, bf16), with the launch counts
    of that run; then the same path on a short input through the kernels and
@@ -37,7 +39,8 @@ passes them all prints the final ``{"ok": true, ...}`` line:
 8. the remaining samplers on a short input with the flagship's weights,
    float32, kernels against plain: the probability-flow ODE by rk4 (N=4) and
    by rk45 (``max_steps`` bounded: random weights make the ODE stiff),
-   euler_maruyama + langevin, and ``--chunk_seconds`` on a 5-s wav;
+   euler_maruyama + langevin, and ``--chunk_seconds`` on a 5-s wav (the
+   plain side eager, where ``enhance_long`` replays CUDA graphs);
 9. training the flagship at the JAX CLI's defaults (B=8, F=T=256, float32,
    remat off): (a) every kernel call signature of a train step, forward and
    backward (K1, the K1 adjoint, K2, K2b), kernel against plain in float32
@@ -191,10 +194,25 @@ passes them all prints the final ``{"ok": true, ...}`` line:
    files at N=30, and the 22-s utterance through ``--chunk_seconds 4``;
    each of (b) and (c) through its tool's ``main`` with the counters set to
    0 just before and read just after: finite metrics, a validation loss that
-   falls, every batch from the native loader, the launch counts exact, the
-   NFE per batch (100 for (b), 60 for (c); 6 chunks x 60 for each of the
-   long utterance's two files); the deltas over the input printed.
-   ``--only 15`` runs phases 1-2 and 15.
+   falls, every batch from the native loader, the launch counts exact (the
+   long utterance's evaluations replay CUDA graphs: two evaluations through
+   the dispatchers per capture), the NFE per batch (100 for (b), 60 for (c);
+   6 chunks x 60 for each of the long utterance's two files); the deltas over
+   the input printed.
+   ``--only 15`` runs phases 1-2 and 15;
+16. K8, the residual merge with the folded biases
+   (``ops/residual_merge.py``): (a) the kernel against its plain version at
+   the main path's shapes (cell 1's 16 x 128 x 256 x {192, 512} and 16 x 256
+   x 64 x 128, the 48 kHz cell's 1 x 128 x 768 x 512) and two of its general
+   path (C of 12 and of 2,056), with both biases, one and none, scale
+   1/sqrt(2) and 1, float32 and bfloat16: equal bit for bit (the same float32
+   operations in the same order, one rounding); (b) at each K8 call signature
+   of one network evaluation of cell 1 (``ncsnpp``, B=16, 256 x 384) and of
+   the 48 kHz cell (``ncsnpp_48k``, B=1, 768 x 512), bf16: bit for bit
+   against plain, the PyTorch ops it replaces (each bias's broadcast
+   ``add_``, as cuDNN's route adds it, the sum and the scale) within
+   LIBRARY_TOL of plain, and the device ms of all three beside its byte
+   bound, summed per evaluation. ``--only 16`` runs phases 1-2 and 16.
 
 Each entry-point path is driven with the launch counters set to 0 just before
 it and read just after. The seconds of each phase are printed before the
@@ -240,10 +258,17 @@ TOL = {
     # slice skipped 0.248): `kernel_times --variant 48k_residual --k6` reads all three.
     ("fir_conv", "float32"): 2e-5,
     ("fir_conv", "bfloat16"): 2.0**-5,
+    # K8 (the residual merge with the folded biases): the same float32 operations in the
+    # same order, one rounding: bit for bit.
+    ("residual_merge", "float32"): 0.0,
+    ("residual_merge", "bfloat16"): 0.0,
 }
 # K6's yardstick, one cuDNN call with the FIR folded into 6x6 weights, against the plain
-# version: in bf16 its folded weights are rounded too, a few bf16 steps.
-LIBRARY_TOL = {("fir_conv", "bfloat16"): 2.0**-6}
+# version: in bf16 its folded weights are rounded too, a few bf16 steps. K8's, the ops it
+# replaces: a division where the plain version multiplies by 1/sqrt(2) in float32; in
+# bf16 up to four roundings against one, within two bf16 steps.
+LIBRARY_TOL = {("fir_conv", "bfloat16"): 2.0**-6, ("residual_merge", "float32"): 1e-6,
+               ("residual_merge", "bfloat16"): 2.0**-6}
 # The backward kernels: the K1 adjoint as K1; K2b's float32 outputs (dgamma, dbeta, and
 # all of them for float32 inputs) 1e-4, its sums running over up to B*H*W = 524,288
 # terms per channel in another order; any bfloat16 output one bf16 step.
@@ -254,7 +279,8 @@ TRAIN_STEP_TOL = 1e-3  # full f32 train step, kernels vs plain: the loss, and ea
                        # gradient relative to its max|plain|
 KEY_BIAS_TOL = 1e-4    # the attention key biases' gradient, exactly 0 (softmax invariance):
                        # rounding noise, relative to the largest gradient of the network
-KERNELS = ("upfirdn2d", "upfirdn2d_adjoint", "group_norm_act", "group_norm_act_bwd", "fir_conv")
+KERNELS = ("upfirdn2d", "upfirdn2d_adjoint", "group_norm_act", "group_norm_act_bwd", "fir_conv",
+           "residual_merge")
 TRAIN_B = 8
 # Per train step (remat off): K1 on the 12 res-block pairs and 12 pyramid calls, its adjoint
 # on the pairs and the 6 output-pyramid upsamplings (the input pyramid acts on the network
@@ -273,18 +299,22 @@ PESQ_LOSS_TOL, PESQ_GRAD_TOL = 1e-4, 1e-3
 PESQ_REPS, PESQ_TRACED = 20, 5
 # Per network evaluation: launches, group_norm_act with/without SiLU, with the pre-bias,
 # parameters. The 48 kHz net keeps the middle block's attention, whose norm has no SiLU.
+# K8 (residual_merge) merges each res-block and attention block, each sum Combine and each
+# residual pyramid level where no gradient is recorded: every evaluation, no train step.
 NETS = {
-    "ncsnpp": dict(launches={"upfirdn2d": 24, "group_norm_act": 109}, silu_split=[105, 4],
-                   pre_bias=49, params=65_590_822),
-    "ncsnpp_48k": dict(launches={"upfirdn2d": 12, "group_norm_act": 100}, silu_split=[99, 1],
-                       pre_bias=49, params=64_739_854),
+    "ncsnpp": dict(launches={"upfirdn2d": 24, "group_norm_act": 109, "residual_merge": 59},
+                   silu_split=[105, 4], pre_bias=49, params=65_590_822),
+    "ncsnpp_48k": dict(launches={"upfirdn2d": 12, "group_norm_act": 100, "residual_merge": 50},
+                       silu_split=[99, 1], pre_bias=49, params=64_739_854),
 }
 # Phase 12: the 48 kHz net with residual pyramids (each pyramid level one K6 launch,
 # fir_conv: 6 down, 6 up) and the full-width ncsnpp variant (DDPM blocks, cat combine, no
 # FIR, elu: K2 without SiLU, no K1); names of kernel_times.VARIANTS.
-NETS["48k_residual"] = dict(launches={"upfirdn2d": 12, "fir_conv": 12, "group_norm_act": 101},
+NETS["48k_residual"] = dict(launches={"upfirdn2d": 12, "fir_conv": 12, "group_norm_act": 101,
+                                      "residual_merge": 62},
                             silu_split=[100, 1], pre_bias=49, params=70_351_118, k6=12)
-NETS["ncsnpp_variant"] = dict(launches={"upfirdn2d": 0, "group_norm_act": 85},
+NETS["ncsnpp_variant"] = dict(launches={"upfirdn2d": 0, "group_norm_act": 85,
+                                        "residual_merge": 41},
                               silu_split=[0, 85], pre_bias=37, params=64_250_918, k6=0)
 # A B=8 train step of the residual net: K1 on the 12 res-block pairs and, in the backward,
 # once on each K6 down call's input (FIR(x) recomputed for the weight gradient); K1 adjoints
@@ -306,8 +336,8 @@ RK45_MAX_STEPS = 4
 # and the training's batch, the cut recipe (about two minutes), and each validation's valid
 # batches (the valid loss on one batch of the 16 valid files; PC N=30 + ald on the 2 eval
 # files follows, one batch).
-NETS["learn_demo"] = dict(launches={"upfirdn2d": 12, "group_norm_act": 45}, silu_split=[44, 1],
-                          pre_bias=20, params=1_377_050, k6=0)
+NETS["learn_demo"] = dict(launches={"upfirdn2d": 12, "group_norm_act": 45, "residual_merge": 24},
+                          silu_split=[44, 1], pre_bias=20, params=1_377_050, k6=0)
 DEMO_TRAIN_LAUNCHES = {"upfirdn2d": 12, "upfirdn2d_adjoint": 9, "group_norm_act": 45,
                        "group_norm_act_bwd": 45}
 DEMO_ENHANCE_B, DEMO_TRAIN_B = 8, 16
@@ -324,8 +354,8 @@ DEMO_VALID_BATCHES = 1
 DEREVERB_TRAIN_B, DEREVERB_VALID_BATCHES, DEREVERB_NFE = 16, 1, 100
 DEREVERB_CUT = ["--num_train", "256", "--max_steps", "32", "--num_eval_files", "2",
                 "--no_profile"]
-NETS["demo_48k"] = dict(launches={"upfirdn2d": 6, "group_norm_act": 42}, silu_split=[41, 1],
-                        pre_bias=20, params=1_370_318, k6=0)
+NETS["demo_48k"] = dict(launches={"upfirdn2d": 6, "group_norm_act": 42, "residual_merge": 21},
+                        silu_split=[41, 1], pre_bias=20, params=1_370_318, k6=0)
 DEMO_48K_TRAIN_LAUNCHES = {"upfirdn2d": 6, "upfirdn2d_adjoint": 6, "group_norm_act": 42,
                            "group_norm_act_bwd": 42}
 DEMO_48K_ENHANCE_B, DEMO_48K_TRAIN_B, DEMO_48K_VALID_BATCHES, DEMO_48K_NFE = 4, 8, 2, 60
@@ -366,6 +396,11 @@ ONE_CARD_LIMITS = ("13: one card cannot verify NCCL across cards (13a is a world
                    "overlap; a world of one moves no bytes between cards), "
                    "or how the speed scales with N (13d and 13e share one card between two "
                    "workers)")
+# Phase 16: the shapes of (a), and the two evaluations of (b): (backbone, B, F, T).
+K8_SHAPES = ((16, 128, 256, 192), (16, 128, 256, 512), (16, 256, 64, 128), (1, 128, 768, 512))
+# K8's general path: C not a multiple of the 16-byte vector (bf16), more than 256 vectors.
+K8_GENERAL_SHAPES = ((2, 12, 9, 7), (1, 2056, 3, 5))
+K8_NETS = {"cell1": ("ncsnpp", 16, 256, 384), "48k": ("ncsnpp_48k", 1, 768, 512)}
 REPLACES = {
     "upfirdn2d": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
     "upfirdn2d_adjoint": ("sgmse_tpu_torch/csrc/upfirdn2d.cu", "sgmse_tpu/ops/upfirdn2d.py:84"),
@@ -376,6 +411,10 @@ REPLACES = {
     # XLA's fusion of the conv and the depthwise FIR: upsample_conv_2d (:175) and
     # conv_downsample_2d (:205), no Pallas kernel
     "fir_conv": ("sgmse_tpu_torch/csrc/fir_conv.cu", "sgmse_tpu/ops/upfirdn2d.py:175"),
+    # XLA's fusion of the res-blocks' Conv_1 and shortcut biases with the (x + h) / sqrt(2)
+    # merge (and of attention's, Combine's and the residual pyramids'), no Pallas kernel
+    "residual_merge": ("sgmse_tpu_torch/csrc/residual_merge.cu",
+                       "sgmse_tpu/models/blocks.py:423"),
 }
 
 
@@ -396,22 +435,25 @@ def card_identity() -> str:
 
 def counters():
     from sgmse_tpu_torch.ops import group_norm as gn
+    from sgmse_tpu_torch.ops import residual_merge as rm
     from sgmse_tpu_torch.ops import upfirdn2d as ufd
 
     k1 = ufd.upfirdn2d_cuda
     return {"upfirdn2d": k1.launches, "upfirdn2d_adjoint": k1.adjoint_launches,
             "group_norm_act": gn.group_norm_act_cuda.launches,
             "group_norm_act_bwd": gn.group_norm_act_bwd_cuda.launches,
-            "fir_conv": ufd.fir_conv_cuda.launches}
+            "fir_conv": ufd.fir_conv_cuda.launches,
+            "residual_merge": rm.residual_merge_cuda.launches}
 
 
 def reset_counters():
     from sgmse_tpu_torch.ops import group_norm as gn
+    from sgmse_tpu_torch.ops import residual_merge as rm
     from sgmse_tpu_torch.ops import upfirdn2d as ufd
 
     ufd.upfirdn2d_cuda.launches = ufd.upfirdn2d_cuda.adjoint_launches = 0
     gn.group_norm_act_cuda.launches = gn.group_norm_act_bwd_cuda.launches = 0
-    ufd.fir_conv_cuda.launches = 0
+    ufd.fir_conv_cuda.launches = rm.residual_merge_cuda.launches = 0
 
 
 def expect(per_call, n=1):
@@ -543,10 +585,11 @@ def network_checks(backbone, dev, report, batch=B):
 
 
 def summarize(rows, train_rows, bridge_rows, launches_by_path, step_rows):
-    """The kernels line: K1 and K2 per network evaluation of the flagship
-    (bf16 device times, B=4), the backward kernels per train step (float32,
-    B=8), K6 (``fir_conv``, on no flagship path) per evaluation of the 48 kHz
-    residual net (bf16, B=4); every kernel's per-train-step sums also under ``per_train_step``,
+    """The kernels line: K1, K2 and K8 per network evaluation of the flagship
+    (bf16 device times, B=4; K8 runs in no train step), the backward kernels
+    per train step (float32, B=8), K6 (``fir_conv``, on no flagship path) per
+    evaluation of the 48 kHz residual net (bf16, B=4); every kernel's
+    per-train-step sums also under ``per_train_step``,
     those of the bridge's B=16 step under ``per_bridge_train_step``, those of
     phase 12's, 14's and 15's nets per evaluation under ``per_nfe_<net>``, and
     those of each train step of ``step_rows`` ({name: its kernel rows}: the
@@ -571,7 +614,11 @@ def summarize(rows, train_rows, bridge_rows, launches_by_path, step_rows):
             launches_by_path={p: path[name] for p, path in launches_by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine if r["dtype"] == "float32"),
             max_abs_err_bf16=max(r["max_abs_err"] for r in mine if r["dtype"] == "bfloat16"))
-        if name not in train_sums:  # K6: per evaluation of the net that runs it
+        if name not in train_sums and name in sums["ncsnpp"]:  # K8: evaluations only
+            entry.update(sums["ncsnpp"][name],
+                         per_nfe_48k={k: v for k, v in sums["ncsnpp_48k"][name].items()
+                                      if k != "library_note"})
+        elif name not in train_sums:  # K6: per evaluation of the net that runs it
             entry.update(sums["48k_residual"][name])
         else:
             per_step = {k: v for k, v in train_sums[name].items() if k != "launches_per_nfe"}
@@ -1128,15 +1175,52 @@ def entry_point(tmp: Path, name: str, argv, sr: int, length: int, nfe: int, per_
     return dict(stats, peak_gib=peak_gib, launches=launches), [w[0] for w, _ in wavs]
 
 
+@contextlib.contextmanager
+def eager_score():
+    """Every network evaluation eager for the duration, also inside
+    ``enhance_long``, whose evaluations otherwise replay the CUDA graphs
+    captured on the route of its first call."""
+    from sgmse_tpu_torch.model import ScoreModel
+
+    orig = ScoreModel.score_fn
+    ScoreModel.score_fn = lambda self: self.forward
+    try:
+        yield
+    finally:
+        ScoreModel.score_fn = orig
+
+
+@contextlib.contextmanager
+def counted_captures():
+    """The CUDA graph captures of ``enhance_long``'s evaluations for the
+    duration (``{"captures": n}``). Each evaluates the network twice through
+    the dispatchers (once outside the graph, once captured); its replays
+    launch from the graph, past the counters."""
+    from sgmse_tpu_torch.model import ScoreModel
+
+    orig, box = ScoreModel._capture, {"captures": 0}
+
+    def capture(self, args):
+        box["captures"] += 1
+        return orig(self, args)
+
+    ScoreModel._capture = capture
+    try:
+        yield box
+    finally:
+        ScoreModel._capture = orig
+
+
 def against_plain(what, run):
     """``run()`` -> (waveform, nfe) through the kernels and through the plain
-    versions (same generator seed); they must agree within ENHANCE_TOL."""
+    versions (same generator seed), the latter eager throughout; they must
+    agree within ENHANCE_TOL."""
     from sgmse_tpu_torch import kernel_times as kt
 
     with warnings.catch_warnings(record=True) as warned:
         warnings.simplefilter("always")
         got, nfe = run()
-        with kt.routed(plain=True):
+        with kt.routed(plain=True), eager_score():
             ref, nfe_ref = run()
     rel = float(np.abs(got - ref).max() / np.abs(ref).max())
     notes = sorted({str(w.message).split(";")[0] for w in warned})
@@ -2219,23 +2303,28 @@ def demo_cut(what, tag, run, per_step, per_forward, valid_batches, report, launc
     validation batch (``valid_batches`` per validation) from the native
     loader, and the launch counts exact: ``per_step`` per train step and
     ``per_forward`` per network evaluation (each validation's valid batches
-    and its PC N=30 + ald on one batch of eval files; every enhancement's NFE
-    and warm-up NFE). Returns the tool's result."""
+    and its PC N=30 + ald on one batch of eval files; every batched
+    enhancement's NFE and warm-up NFE; the long utterance's, which
+    ``enhance_long`` replays from CUDA graphs, two per capture). Returns the
+    tool's result."""
     import torch
     from sgmse_tpu_torch.data import native
 
     torch.cuda.synchronize()
     reset_counters()
     served = dict(native.SERVED)
-    with cudnn_tf32():
+    with cudnn_tf32(), counted_captures() as graphs:
         r = run()
     torch.cuda.synchronize()
     launches = counters()
     served = {k: v - served[k] for k, v in native.SERVED.items()}
     journey = r["validations"]
     groups = [r] + ([r["long"]] if "long" in r else [])
-    enhance_nfe = sum(g["enhance_nfe"] + g["enhance_warmup_nfe"] for g in groups)
-    forwards = len(journey) * (valid_batches + EVAL_NFE) + enhance_nfe
+    if ("long" in r) != (graphs["captures"] > 0):
+        raise AssertionError(f"{what}: {graphs['captures']} CUDA graph captures, long stage "
+                             f"{'long' in r}")
+    forwards = (len(journey) * (valid_batches + EVAL_NFE) + r["enhance_nfe"]
+                + r["enhance_warmup_nfe"] + 2 * graphs["captures"])
     expected = add(expect(per_step, r["steps"]), expect(per_forward, forwards))
     losses = [v["valid_loss"] for v in journey]
     finite = all(np.isfinite(v) for g in groups for k in ("noisy", "enhanced", "delta")
@@ -2245,7 +2334,8 @@ def demo_cut(what, tag, run, per_step, per_forward, valid_batches, report, launc
           f"{r['noisy']}, enhanced {r['enhanced']}, delta {r['delta']}; "
           f"{r['train_steps_per_s']:.2f} steps/s with validation, enhancement "
           f"{r['enhance_audio_s_per_wall_s']:.2f} audio-s/wall-s; launches {launches} "
-          f"(expected {expected}: {r['steps']} steps, {forwards} evaluations); batches served "
+          f"(expected {expected}: {r['steps']} steps, {forwards} evaluations, "
+          f"{graphs['captures']} graph captures); batches served "
           f"{served}")
     if (launches != expected or not finite or len(losses) < 2 or not losses[-1] < losses[0]
             or served != {"native": r["steps"] + len(journey) * valid_batches, "python": 0}):
@@ -2351,6 +2441,70 @@ def phase_15(tmp: Path, report, launches_by_path, dev, lap):
     return rows, step_rows
 
 
+def phase_16(tmp: Path, report, launches_by_path, dev, lap):
+    """Phase 16: K8 bit for bit against its plain version at the main path's
+    shapes and on its general path (16a), then at every K8 call signature of
+    one evaluation of cells 1 and 4: bit for bit, its yardstick within
+    LIBRARY_TOL, and timed (16b)."""
+    import torch
+    from sgmse_tpu_torch import kernel_times as kt
+    from sgmse_tpu_torch.ops import residual_merge as rm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    checked = 0
+    for shape in K8_SHAPES + K8_GENERAL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for scale in (2.0**-0.5, 1.0):
+                for biases in ((True, True), (True, False), (False, False)):
+                    case = kt.make_case("residual_merge", (shape, scale, *biases), dtype, dev,
+                                        gen)
+                    before = rm.residual_merge_cuda.launches
+                    got, ref = case["kernel"](), case["plain"]()
+                    torch.cuda.synchronize()
+                    if rm.residual_merge_cuda.launches != before + 1 or not torch.equal(got, ref):
+                        err = (got.float() - ref.float()).abs().max().item()
+                        raise AssertionError(f"16a K8 {case['sig']} {dtype}: max |kernel - "
+                                             f"plain| {err}")
+                    checked += 1
+                    del case, got, ref
+    print(f"16a K8 against plain: {checked} cases over {len(K8_SHAPES)} shapes of the main "
+          f"path and {len(K8_GENERAL_SHAPES)} of the general path, bit for bit")
+    lap("16a K8 checks")
+    per_net = {}
+    for net, (backbone, batch, f_bins, frames) in K8_NETS.items():
+        model = kt.full_model(dev, precision="bfloat16", backbone=backbone)
+        x, y, t = kt.network_inputs(dev, f_bins, batch=batch, frames=frames)
+        with torch.inference_mode(), kt.routed(calls=[]) as calls:
+            model.dnn(x, y, t)
+        del model, x, y, t
+        torch.cuda.empty_cache()
+        rows = []
+        for (name, sig), n in kt.per_forward(calls).items():
+            if name != "residual_merge":
+                continue
+            case = kt.make_case(name, sig, torch.bfloat16, dev, gen)
+            what = f"16b {net} K8 {case['sig']}"
+            got, ref = case["kernel"](), case["plain"]()
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                err = (got.float() - ref.float()).abs().max().item()
+                raise AssertionError(f"{what}: max |kernel - plain| {err}")
+            lib_err, _ = rel_check(f"{what} library", case["library"](), case["library_ref"](),
+                                   LIBRARY_TOL[(name, "bfloat16")])
+            row = dict(kt.time_case(case), per_forward=n, library_err=lib_err)
+            rows.append(row)
+            print(f"  {what} x{n}: bit for bit; bf16 device {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
+                  f"{row['bound_ms']:.4f}")
+            del case, got, ref
+        total = kt.per_nfe(rows)["residual_merge"]
+        per_net[net] = dict(total, shapes=rows)
+        print(f"16b {net} ({backbone}, B={batch}, {f_bins} x {frames}) per evaluation: "
+              f"{ {k: v for k, v in total.items() if k != 'library_note'} }")
+    report["k8"] = per_net
+    lap("16b K8 times")
+
+
 def phase_12(tmp: Path, report, launches_by_path, dev, lap):
     """Phase 12: 12a-c (``residual_checks``), then 12d (``dcunet_checks``).
     Returns the kernel rows and the residual net's train kernel rows."""
@@ -2366,7 +2520,7 @@ def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch port.")
-    parser.add_argument("--only", choices=("12", "13", "14", "15"), default=None,
+    parser.add_argument("--only", choices=("12", "13", "14", "15", "16"), default=None,
                         help="run phases 1-2 and this phase only, and print no contract lines "
                              "(a quicker check of one phase)")
     only = parser.parse_args(argv).only
@@ -2407,8 +2561,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         if only is not None:
-            {"12": phase_12, "13": phase_13, "14": phase_14,
-             "15": phase_15}[only](tmp, report, launches_by_path, dev, lap)
+            {"12": phase_12, "13": phase_13, "14": phase_14, "15": phase_15,
+             "16": phase_16}[only](tmp, report, launches_by_path, dev, lap)
             print(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
             (OUT_DIR / f"chip_smoke_{only}.json").write_text(json.dumps(report, indent=1,
                                                                         default=str))
@@ -2568,6 +2722,9 @@ def main(argv=None):
         demo_48k_rows, step_rows = phase_15(tmp, report, launches_by_path, dev, lap)
         rows += demo_48k_rows
         print(f"phase 15: {time.time() - t15:.1f} s")
+
+        # --- 16. K8, the residual merge --------------------------------------------------
+        phase_16(tmp, report, launches_by_path, dev, lap)
 
     summary = summarize(rows, train_rows, bridge_rows, launches_by_path,
                         {"48k_residual": residual_train_rows, "learn_demo": demo_train_rows,

@@ -27,7 +27,11 @@ signature's calls per evaluation. ``--variant`` takes the calls of one of the
 conv + bias, ``fir_conv``; yardstick: one cuDNN call with the FIR folded into
 6x6 weights) runs in each pyramid level, or the full-width ``ncsnpp`` with
 DDPM blocks, ``cat`` combine, no FIR and elu, whose K2 calls run without
-SiLU, or the learn demos' narrow nets (``learn_demo`` at 16 kHz, ``demo_48k`` at 48 kHz). With
+SiLU, or the learn demos' narrow nets (``learn_demo`` at 16 kHz, ``demo_48k`` at 48 kHz).
+K8 (``residual_merge``, the residual merge with the folded convolution
+biases) runs in every evaluation, where no gradient is recorded; its
+yardstick is the PyTorch ops it replaces (each bias's broadcast add, the sum,
+the scale), and it has no calls in a train step. With
 ``--train`` the calls are those of one train step of the flagship (or of
 ``--variant``) at the JAX defaults
 (B=8, F=T=256, float32, remat off; ``--batch`` sets another batch), forward
@@ -47,6 +51,7 @@ import argparse
 import contextlib
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -97,17 +102,28 @@ K6_LIBRARY_NOTE = ("depthwise cuDNN at stride 1: F.conv2d(padding p, groups C) w
 K6_FOLDED_NOTE = ("one cuDNN call with the FIR folded into the weights: the 6x6 kernel "
                   "w * k at stride 2, padding 2 (F.conv_transpose2d up, F.conv2d down), "
                   "then the bias add")
+K8_LIBRARY_NOTE = ("the ops K8 replaces, as the blocks run them with autograd on after "
+                   "cuDNN's bias-free convolution: each bias's broadcast add_ in the "
+                   "compute dtype, the sum, and the scale")
 K2B_LIBRARY_NOTE = ("aten.native_group_norm_backward on NCHW copies: GroupNorm only (no "
                     "SiLU, no pre-bias), dx, dgamma and dbeta")
 LIBRARY_NOTES = {"upfirdn2d": K1_LIBRARY_NOTE, "upfirdn2d_adjoint": K1_ADJOINT_LIBRARY_NOTE,
                  "group_norm_act": K2_LIBRARY_NOTE, "group_norm_act_bwd": K2B_LIBRARY_NOTE,
-                 "fir_conv": K6_FOLDED_NOTE}
+                 "fir_conv": K6_FOLDED_NOTE, "residual_merge": K8_LIBRARY_NOTE}
 
 
 def ops_modules():
     gn = importlib.import_module("sgmse_tpu_torch.ops.group_norm")
     ufd = importlib.import_module("sgmse_tpu_torch.ops.upfirdn2d")
     return gn, ufd
+
+
+def merge_module():
+    """``ops/residual_merge.py`` (K8), or None in a checkout without it."""
+    try:
+        return importlib.import_module("sgmse_tpu_torch.ops.residual_merge")
+    except ModuleNotFoundError:
+        return None
 
 
 @contextlib.contextmanager
@@ -120,13 +136,16 @@ def routed(calls=None, plain=False):
     launch in a backward that computes a forward, K6 down's recompute of
     FIR(x), as ``upfirdn2d``). K6 is ``fir_conv``, with the signature
     ``("up" | "down", x shape, w shape, 1-D FIR taps, factor, gain, bias?)``.
-    Works for checkouts with and without the pair launch, the pre-bias, the
-    backward kernels and K6's kernel."""
+    K8 is ``residual_merge``, with the signature ``(shape, scale, bias?,
+    skip bias?)``. Works for checkouts with and without the pair launch, the
+    pre-bias, the backward kernels, K6's kernel and K8."""
     gn, ufd = ops_modules()
+    rm = merge_module()
     orig = {"gn": gn.group_norm_act, "u": ufd.upfirdn2d,
             "pair": getattr(ufd, "upfirdn2d_pair", None),
             "bwd": getattr(gn, "group_norm_act_bwd", None),
-            "k6": getattr(ufd, "fir_conv", None)}
+            "k6": getattr(ufd, "fir_conv", None),
+            "k8": None if rm is None else rm.residual_merge}
 
     def taps(kernel):
         return tuple(float(v) for v in np.asarray(kernel, np.float32).ravel())
@@ -173,9 +192,18 @@ def routed(calls=None, plain=False):
         fn = ufd.fir_conv_plain if plain else orig["k6"]
         return fn(x, w, k, factor, gain, bias, up)
 
+    def residual_merge(h, skip, scale=1.0, bias=None, skip_bias=None):
+        if calls is not None:
+            calls.append(("residual_merge", (tuple(h.shape), float(scale), bias is not None,
+                                             skip_bias is not None)))
+        fn = rm.residual_merge_plain if plain else orig["k8"]
+        return fn(h, skip, scale, bias, skip_bias)
+
     gn.group_norm_act, ufd.upfirdn2d = group_norm_act, upfirdn2d
     if orig["k6"] is not None:
         ufd.fir_conv = fir_conv
+    if orig["k8"] is not None:
+        rm.residual_merge = residual_merge
     if orig["pair"] is not None:
         ufd.upfirdn2d_pair = upfirdn2d_pair
     if orig["bwd"] is not None:
@@ -190,6 +218,8 @@ def routed(calls=None, plain=False):
             gn.group_norm_act_bwd = orig["bwd"]
         if orig["k6"] is not None:
             ufd.fir_conv = orig["k6"]
+        if orig["k8"] is not None:
+            rm.residual_merge = orig["k8"]
 
 
 def full_model(dev, precision="float32", backbone="ncsnpp", **settings):
@@ -221,6 +251,10 @@ def per_forward(calls):
 
 
 def label(name, sig):
+    if name == "residual_merge":
+        shape, scale, bias, skip_bias = sig
+        return (f"{shape} scale={scale:.4f}" + (" bias" if bias else "")
+                + (" skip_bias" if skip_bias else ""))
     if name.startswith("upfirdn2d"):
         shape, up, down, pad, _, n = sig
         return f"{shape} up={up} down={down} pad={pad}" + (" pair" if n == 2 else "")
@@ -232,9 +266,12 @@ def make_case(name, sig, dtype, dev, gen):
     """Inputs and the callables of one signature: ``kernel``, ``plain``, and,
     where a yardstick exists, ``library`` with ``library_ref`` (the plain version
     of the function the yardstick computes). Also its bytes and operations.
-    K6 (``fir_conv``) is :func:`make_k6_case`'s."""
+    K6 (``fir_conv``) is :func:`make_k6_case`'s, K8 (``residual_merge``)
+    :func:`make_k8_case`'s."""
     if name == "fir_conv":
         return make_k6_case(sig, dtype, dev, gen)
+    if name == "residual_merge":
+        return make_k8_case(sig, dtype, dev, gen)
     gn, ufd = ops_modules()
     shape = sig[0]
 
@@ -530,6 +567,54 @@ def make_k6_case(sig, dtype, dev, gen):
     bytes_ms = case["bytes"] / PEAK_BYTES_PER_S * 1e3
     ops_ms = (conv_ops / conv_rate + fir_ops / PEAK_F32_FLOPS) * 1e3
     case["bound_ms"], case["ops_ms"] = max(bytes_ms, ops_ms), ops_ms
+    case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return case
+
+
+def k8_library(h, skip, scale, bias, skip_bias):
+    """The PyTorch ops K8 replaces, as the blocks run them with autograd on
+    after cuDNN's bias-free convolution: each bias's broadcast ``add_`` in the
+    compute dtype (over h, and over skip), the sum, and the scale."""
+    c = h.shape[1]
+    if bias is not None:
+        h.add_(bias.to(h.dtype).reshape(1, c, 1, 1))
+    if skip_bias is not None:
+        skip.add_(skip_bias.to(h.dtype).reshape(1, c, 1, 1))
+    return (skip + h) / math.sqrt(2.0) if scale != 1.0 else skip + h
+
+
+def make_k8_case(sig, dtype, dev, gen):
+    """K8 at one ``residual_merge`` call signature: ``kernel``
+    (``csrc/residual_merge.cu``), ``plain``, ``library`` (:func:`k8_library`)
+    with ``library_ref`` (the plain version); bytes (skip and h read, h
+    written, the biases read) and operations. Each callable writes over its
+    own copy of the same h (the library over its own skip too), so that the
+    first call of each computes from the same inputs; the kernel's
+    writes in place, as the network calls it. The biases are float32, as the
+    network holds them."""
+    rm = merge_module()
+    shape, scale, has_bias, has_skip_bias = sig
+    c = shape[1]
+    h, skip = (torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(
+        memory_format=torch.channels_last) for _ in range(2))
+    bias, skip_bias = (0.1 * torch.randn(c, generator=gen, device=dev) if on else None
+                       for on in (has_bias, has_skip_bias))
+    h_k, h_p, h_l, h_r, skip_l = (t.clone() for t in (h, h, h, h, skip))
+    n_el = int(np.prod(shape))
+    esize = torch.empty((), dtype=dtype).element_size()
+    n_bias = int(has_bias) + int(has_skip_bias)
+    case = dict(name="residual_merge", sig=label("residual_merge", sig),
+                dtype=str(dtype).split(".")[-1],
+                kernel=lambda: rm.residual_merge_cuda(h_k, skip, scale, bias, skip_bias),
+                plain=lambda: rm.residual_merge_plain(h_p, skip, scale, bias, skip_bias),
+                library=lambda: k8_library(h_l, skip_l, scale, bias, skip_bias),
+                library_ref=lambda: rm.residual_merge_plain(h_r, skip, scale, bias, skip_bias),
+                bytes=3 * n_el * esize + 4 * c * n_bias,
+                # the bias adds, the sum, the scale
+                ops=n_el * (n_bias + 1 + int(scale != 1.0)))
+    bytes_ms = case["bytes"] / PEAK_BYTES_PER_S * 1e3
+    ops_ms = case["ops"] / PEAK_F32_FLOPS * 1e3
+    case["bound_ms"] = max(bytes_ms, ops_ms)
     case["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return case
 

@@ -128,6 +128,8 @@ def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
     handle.sgmse_group_norm_act_bwd.restype = i
     handle.sgmse_fir_conv.argtypes = [p] * 4 + [i] * 18 + [p, i, i, p]
     handle.sgmse_fir_conv.restype = i
+    handle.sgmse_residual_merge.argtypes = [p] * 4 + [ctypes.c_longlong, i, f, i, p]
+    handle.sgmse_residual_merge.restype = i
     handle.sgmse_error_string.argtypes = [i]
     handle.sgmse_error_string.restype = ctypes.c_char_p
     return handle

@@ -13,10 +13,23 @@ and parameters to; GroupNorm statistics and the attention softmax stay float32.
 Initializers follow the DDPM convention: variance scaling (fan_avg, uniform)
 with scale 1e-10 when init_scale == 0. ``init_parameters(generator)`` on each
 leaf module draws its parameters from an explicit generator.
+
+Where no gradient is recorded (:func:`folding`: ``ScoreModel.enhance``,
+``enhance_long`` and its CUDA graphs, serving, evaluation under ``no_grad``),
+the blocks fold their convolutions' biases into the hand-written kernel that
+reads the output next, instead of a broadcast add of their own: each
+res-block's Conv_0 bias joins the (B, C) pre-bias that K2 adds before
+GroupNorm_1, and Conv_1's, the shortcut's (Conv_2, NIN_0), NIN_3's and a sum
+Combine's go into K8, the residual merge (:func:`residual`,
+``ops/residual_merge.py``). Every bias is still added, in float32. With
+autograd on, each convolution adds its own bias, as before. ``BIAS_ADDS``
+counts, where no gradient is recorded, the biased convolutions and
+projections by where their bias went (with autograd on it counts nothing).
 """
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -24,10 +37,28 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import group_norm as gn
+from ..ops import residual_merge as rm
 from ..ops import upfirdn2d as ufd
 from ..parallel.rows import draw
 
 CL = torch.channels_last
+
+# Calls of biased convolutions (Conv2d) and projections (NIN) where no gradient is
+# recorded, all threads: those whose bias was "folded" into the next kernel (K2's
+# pre-bias, K8) and those that added it in a "separate" op.
+BIAS_ADDS = {"folded": 0, "separate": 0}
+_bias_lock = threading.Lock()
+
+
+def _tally(folded: bool) -> None:
+    with _bias_lock:
+        BIAS_ADDS["folded" if folded else "separate"] += 1
+
+
+def folding() -> bool:
+    """Whether the blocks fold their convolutions' biases into the next
+    kernel: where no gradient is recorded."""
+    return not torch.is_grad_enabled()
 
 
 def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -87,10 +118,15 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x):
+    def forward(self, x, with_bias: bool = True):
+        """The convolution in ``dtype``; without ``with_bias`` its bias is left
+        to the caller, which folds it into the kernel that reads the output."""
         dt = self.dtype or torch.float32
-        return F.conv2d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt), self.stride,
-                        self.padding, self.dilation)
+        if self.bias is not None and folding():
+            _tally(not with_bias)
+        bias = _cast(self.bias, dt) if with_bias else None
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding,
+                        self.dilation)
 
 
 class Dense(nn.Module):
@@ -121,8 +157,8 @@ class Conv3x3(nn.Module):
         self.Conv_0 = Conv2d(in_ch, out_ch, 3, stride, padding, dilation, bias, dtype,
                              init_scale=init_scale)
 
-    def forward(self, x):
-        return self.Conv_0(x)
+    def forward(self, x, with_bias: bool = True):
+        return self.Conv_0(x, with_bias)
 
 
 class Conv1x1(nn.Module):
@@ -133,8 +169,8 @@ class Conv1x1(nn.Module):
         super().__init__()
         self.Conv_0 = Conv2d(in_ch, out_ch, 1, stride, 0, 1, bias, dtype, init_scale=init_scale)
 
-    def forward(self, x):
-        return self.Conv_0(x)
+    def forward(self, x, with_bias: bool = True):
+        return self.Conv_0(x, with_bias)
 
 
 class NIN(nn.Module):
@@ -151,10 +187,15 @@ class NIN(nn.Module):
         ddpm_init_(self.W, self.init_scale, in_dim, units, generator)
         nn.init.zeros_(self.b)
 
-    def forward(self, x):
+    def forward(self, x, with_bias: bool = True):
+        """The projection in ``dtype``; without ``with_bias`` as Conv2d's."""
         dt = self.dtype or torch.float32
+        if folding():
+            _tally(not with_bias)
         # channels_last (B, C, H, W) is a contiguous (B, H, W, C) after the permute.
-        h = torch.matmul(x.to(dt).permute(0, 2, 3, 1), self.W.to(dt)) + self.b.to(dt)
+        h = torch.matmul(x.to(dt).permute(0, 2, 3, 1), self.W.to(dt))
+        if with_bias:
+            h = h + self.b.to(dt)
         return h.permute(0, 3, 1, 2)
 
 
@@ -233,6 +274,27 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
     return emb
 
 
+def residual(x, h, skip_rescale: bool, fold: bool, bias=None, skip_bias=None):
+    """The merge of a skip x with a branch h: (x + h) / sqrt(2) with
+    ``skip_rescale``, else x + h. With ``fold``, K8 adds the float32 (C,)
+    ``bias`` and ``skip_bias`` that h's and x's convolutions left out in the
+    same pass and writes the result over h; without it they are not read (the
+    convolutions added them)."""
+    if fold:
+        return rm.residual_merge(h.contiguous(memory_format=CL), x.contiguous(memory_format=CL),
+                                 1.0 / math.sqrt(2.0) if skip_rescale else 1.0, bias, skip_bias)
+    return (x + h) / math.sqrt(2.0) if skip_rescale else x + h
+
+
+def _pre_bias(temb_bias, conv_bias, h):
+    """GroupNorm_1's (B, C) pre-bias in h's dtype with Conv_0's float32 bias
+    folded in: added to the time-embedding bias in float32 and rounded once (it
+    alone where there is none)."""
+    if temb_bias is None:
+        return conv_bias.to(h.dtype).expand(h.shape[0], -1).contiguous()
+    return temb_bias.add_(conv_bias)
+
+
 class Combine(nn.Module):
     """Combine a pyramid skip with the trunk: 1x1 conv then sum/concat."""
 
@@ -244,10 +306,11 @@ class Combine(nn.Module):
         self.method = method
 
     def forward(self, x, y):
-        h = self.Conv_0(x)
         if self.method == "cat":
-            return torch.cat([h, y], dim=1)
-        return h + y
+            return torch.cat([self.Conv_0(x), y], dim=1)
+        fold = folding()
+        return residual(y, self.Conv_0(x, with_bias=not fold), False, fold,
+                        self.Conv_0.Conv_0.bias)
 
 
 class AttnBlockpp(nn.Module):
@@ -275,10 +338,9 @@ class AttnBlockpp(nn.Module):
         logits = torch.matmul(q, k.transpose(1, 2)) * (c ** -0.5)
         weights = torch.softmax(logits.float(), dim=-1).to(v.dtype)
         out = torch.matmul(weights, v).reshape(b, h, w, c).permute(0, 3, 1, 2)
-        out = self.NIN_3(out)
-        if not self.skip_rescale:
-            return x + out
-        return (x + out) / math.sqrt(2.0)
+        fold = folding()
+        return residual(x, self.NIN_3(out, with_bias=not fold), self.skip_rescale, fold,
+                        self.NIN_3.b)
 
 
 class FIRConv2d(nn.Module):
@@ -410,17 +472,19 @@ class ResnetBlockDDPMpp(nn.Module):
                 self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
 
     def forward(self, x, temb=None, generator: Optional[torch.Generator] = None):
-        h = self.Conv_0(self.GroupNorm_0(x))
+        fold = folding()
+        h = self.Conv_0(self.GroupNorm_0(x), with_bias=not fold)
         bias = None if temb is None else self.Dense_0(self.act(temb))
+        if fold:
+            bias = _pre_bias(bias, self.Conv_0.Conv_0.bias, h)
         h = _dropout(self.GroupNorm_1(h, bias), self.dropout, self.training, generator)
-        h = self.Conv_1(h)
+        h = self.Conv_1(h, with_bias=not fold)
+        skip_bias = None
         if hasattr(self, "Conv_2"):
-            x = self.Conv_2(x)
+            x, skip_bias = self.Conv_2(x, with_bias=not fold), self.Conv_2.Conv_0.bias
         elif hasattr(self, "NIN_0"):
-            x = self.NIN_0(x)
-        if not self.skip_rescale:
-            return x + h
-        return (x + h) / math.sqrt(2.0)
+            x, skip_bias = self.NIN_0(x, with_bias=not fold), self.NIN_0.b
+        return residual(x, h, self.skip_rescale, fold, self.Conv_1.Conv_0.bias, skip_bias)
 
 
 class ResnetBlockBigGANpp(nn.Module):
@@ -430,10 +494,11 @@ class ResnetBlockBigGANpp(nn.Module):
     GroupNorm kernel, any other runs after it. The time-embedding bias before
     GroupNorm_1, which the JAX block adds to h in the compute dtype, is fused
     into the kernel too: the port adds it in float32, so in bfloat16 it skips
-    one rounding of the sum. ``dropout`` applies after GroupNorm_1 in
-    ``train()`` mode only (flax ``nn.Dropout``: keep with probability 1 - rate,
-    scale by its inverse), drawing its mask from the ``generator`` given to
-    forward.
+    one rounding of the sum; where no gradient is recorded, Conv_0's bias joins
+    it, and Conv_1's and Conv_2's go into K8 with the merge (module docstring).
+    ``dropout`` applies after GroupNorm_1 in ``train()`` mode only (flax
+    ``nn.Dropout``: keep with probability 1 - rate, scale by its inverse),
+    drawing its mask from the ``generator`` given to forward.
     """
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None, up: bool = False,
@@ -466,17 +531,19 @@ class ResnetBlockBigGANpp(nn.Module):
         return naive(h, factor=2), naive(x, factor=2)
 
     def forward(self, x, temb=None, generator: Optional[torch.Generator] = None):
+        fold = folding()
         h = self.GroupNorm_0(x)
         if self.up or self.down:
             h, x = self._resample(h.contiguous(memory_format=CL),
                                   x.contiguous(memory_format=CL))
-        h = self.Conv_0(h)
+        h = self.Conv_0(h, with_bias=not fold)
         bias = None if temb is None else self.Dense_0(self.act(temb))
+        if fold:
+            bias = _pre_bias(bias, self.Conv_0.Conv_0.bias, h)
         h = self.GroupNorm_1(h, bias)
         h = _dropout(h, self.dropout, self.training, generator)
-        h = self.Conv_1(h)
+        h = self.Conv_1(h, with_bias=not fold)
+        skip_bias = None
         if hasattr(self, "Conv_2"):
-            x = self.Conv_2(x)
-        if not self.skip_rescale:
-            return x + h
-        return (x + h) / math.sqrt(2.0)
+            x, skip_bias = self.Conv_2(x, with_bias=not fold), self.Conv_2.Conv_0.bias
+        return residual(x, h, self.skip_rescale, fold, self.Conv_1.Conv_0.bias, skip_bias)

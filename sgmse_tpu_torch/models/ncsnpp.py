@@ -42,7 +42,6 @@ Call contract: ``forward(x_t, y, t) -> complex64 (B, 1, F, T)``; the legacy
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
@@ -52,7 +51,7 @@ import torch.utils.checkpoint
 from ..ops import upfirdn2d as ufd
 from .blocks import (CL, AttnBlockpp, Combine, Conv2d, Conv3x3, DDPMDense, Downsample,
                      GaussianFourierProjection, ResnetBlockBigGANpp, ResnetBlockDDPMpp,
-                     Upsample, get_act, get_timestep_embedding, norm_act)
+                     Upsample, folding, get_act, get_timestep_embedding, norm_act, residual)
 from .registry import BackboneRegistry
 
 
@@ -259,8 +258,9 @@ class NCSNppBase(nn.Module):
         return torch.utils.checkpoint.checkpoint(run, x, temb, use_reentrant=False)
 
     def _merge(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """A residual pyramid's merge with the trunk."""
-        return (a + b) / math.sqrt(2.0) if self.skip_rescale else a + b
+        """A residual pyramid's merge with the trunk (K8 where no gradient is
+        recorded, written over b)."""
+        return residual(a, b, self.skip_rescale, folding())
 
     def forward(self, x_t: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

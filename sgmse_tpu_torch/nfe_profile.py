@@ -57,6 +57,7 @@ KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("NCCL collectives", ("nccl",)),
     ("K6 fir_conv", ("fir_conv",)),
     ("K2 group_norm_act", ("gn_act_kernel",)),
+    ("K8 residual_merge", ("residual_merge_kernel",)),
     ("K2b group_norm_act_bwd", ("gn_bwd_",)),
     ("K1 upfirdn2d", ("upfirdn2d",)),
     ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "nhwcAddPadding", "cudnn", "xmma",

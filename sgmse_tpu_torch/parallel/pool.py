@@ -125,13 +125,14 @@ def _counters(collectives: bool = False, reset: bool = False) -> Dict:
 
 def _launch_counts(reset: bool = False) -> Dict[str, int]:
     """This process's kernel launch counters (``ops``), set to 0 with ``reset``."""
-    from ..ops import group_norm as gn, upfirdn2d as ufd
+    from ..ops import group_norm as gn, residual_merge as rm, upfirdn2d as ufd
 
     counters = {"upfirdn2d": (ufd.upfirdn2d_cuda, "launches"),
                 "upfirdn2d_adjoint": (ufd.upfirdn2d_cuda, "adjoint_launches"),
                 "group_norm_act": (gn.group_norm_act_cuda, "launches"),
                 "group_norm_act_bwd": (gn.group_norm_act_bwd_cuda, "launches"),
-                "fir_conv": (ufd.fir_conv_cuda, "launches")}
+                "fir_conv": (ufd.fir_conv_cuda, "launches"),
+                "residual_merge": (rm.residual_merge_cuda, "launches")}
     counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     if reset:
         for fn, attr in counters.values():

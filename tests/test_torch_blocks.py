@@ -7,6 +7,13 @@ DDPM default would make a branch ~0), carried over by
 NHWC for JAX, the same data as NCHW-indexed channels_last for the port.
 Tolerance: 1e-4 relative to max|out| (convolution and reduction sums in
 another order).
+
+The DDPM init sets every bias to zero, where a bias dropped, added twice or
+added in the wrong place would not show; the port folds the res-blocks',
+attention's and Combine's biases into its kernels where no gradient is
+recorded. So each block that folds is also run with every bias leaf of the
+JAX tree (``bias``, NIN's ``b``, GroupNorm's too) moved by seeded noise, the
+port under ``no_grad``, at the same tolerances.
 """
 import math
 
@@ -37,12 +44,24 @@ def _port_out(t):
     return t.permute(0, 2, 3, 1).numpy() if t.ndim == 4 else t.numpy()
 
 
-def _run(jmod, pmod, *inputs, **kw):
-    """Init jmod on the inputs, load its params into pmod, run both; compare."""
-    variables = jmod.init(jax.random.key(0), *(jnp.asarray(a) for a in inputs), **kw)
-    ref = np.asarray(jmod.apply(variables, *(jnp.asarray(a) for a in inputs), **kw))
-    pmod.load_state_dict(convert.state_dict_from_jax(jax.tree.map(np.asarray,
-                                                                  variables["params"])))
+def move_biases(params, seed=0, scale=0.3):
+    """The JAX params tree with every bias leaf (``bias``, NIN's ``b``) moved
+    by seeded noise of std ``scale``."""
+    rng = np.random.default_rng(seed)
+    flat = convert.flatten_tree(jax.tree.map(np.asarray, params))
+    return convert.unflatten_tree({
+        k: v + (scale * rng.standard_normal(v.shape)).astype(v.dtype)
+        if k.rsplit("/", 1)[-1] in ("bias", "b") else v for k, v in flat.items()})
+
+
+def _run(jmod, pmod, *inputs, biases=False, **kw):
+    """Init jmod on the inputs, load its params into pmod, run both; compare.
+    With ``biases``, every bias leaf moved (:func:`move_biases`) first."""
+    params = jmod.init(jax.random.key(0), *(jnp.asarray(a) for a in inputs), **kw)["params"]
+    if biases:
+        params = move_biases(params)
+    ref = np.asarray(jmod.apply({"params": params}, *(jnp.asarray(a) for a in inputs), **kw))
+    pmod.load_state_dict(convert.state_dict_from_jax(jax.tree.map(np.asarray, params)))
     with torch.no_grad():
         got = _port_out(pmod(*(_port_in(a) for a in inputs)))
     assert got.shape == ref.shape, (got.shape, ref.shape)
@@ -120,6 +139,70 @@ def test_resnet_block_biggan_bf16(up, down):
     ref = np.asarray(jmod.apply(variables, jnp.asarray(x), jnp.asarray(temb))).astype(np.float32)
     pmod.load_state_dict(convert.state_dict_from_jax(jax.tree.map(np.asarray,
                                                                   variables["params"])))
+    with torch.no_grad():
+        got = pmod(_port_in(x).to(torch.bfloat16), _port_in(temb))
+    assert got.dtype == torch.bfloat16
+    got = _port_out(got)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 5e-2 * np.abs(ref).max()
+
+
+# Blocks whose biases the port folds where no gradient is recorded: (JAX block, port block,
+# inputs), built on demand.
+FOLDING = {
+    "attention": lambda: (jb.AttnBlockpp(skip_rescale=True, init_scale=1.0),
+                          pb.AttnBlockpp(16, skip_rescale=True, init_scale=1.0),
+                          (_nhwc((2, 4, 6, 16), 5),)),
+    "attention, no rescale": lambda: (jb.AttnBlockpp(init_scale=1.0),
+                                      pb.AttnBlockpp(16, init_scale=1.0),
+                                      (_nhwc((2, 4, 6, 16), 5),)),
+    "combine sum": lambda: (jb.Combine(dim2=8, method="sum"), pb.Combine(4, 8, method="sum"),
+                            (_nhwc((2, 6, 4, 4), 3), _nhwc((2, 6, 4, 8), 4))),
+    **{f"biggan {i}o{o}{' up' if up else ''}{' down' if down else ''}"
+       f"{' temb' if temb else ''}": (
+        lambda i=i, o=o, up=up, down=down, temb=temb: (
+            jb.ResnetBlockBigGANpp(act=jax.nn.silu, in_ch=i, out_ch=o, up=up, down=down,
+                                   fir=True, init_scale=1.0, temb_dim=24 if temb else None),
+            pb.ResnetBlockBigGANpp(i, o, up=up, down=down, fir=True, init_scale=1.0,
+                                   temb_dim=24 if temb else None),
+            (_nhwc((2, 8, 6, i), 6),) + ((_nhwc((2, 24), 7),) if temb else ())))
+       for i, o, up, down, temb in [(16, 16, False, False, True), (16, 32, False, False, True),
+                                    (16, 16, True, False, True), (16, 16, False, True, True),
+                                    (32, 16, False, True, False)]},
+    **{f"ddpm {i}o{o}{' conv_shortcut' if conv else ''}{' temb' if temb else ''}": (
+        lambda i=i, o=o, conv=conv, temb=temb: (
+            jb.ResnetBlockDDPMpp(act=jax.nn.silu, in_ch=i, out_ch=o, conv_shortcut=conv,
+                                 skip_rescale=True, init_scale=1.0,
+                                 temb_dim=24 if temb else None),
+            pb.ResnetBlockDDPMpp(i, o, conv_shortcut=conv, skip_rescale=True, init_scale=1.0,
+                                 temb_dim=24 if temb else None).eval(),  # no dropout
+            (_nhwc((2, 8, 6, i), 6),) + ((_nhwc((2, 24), 7),) if temb else ())))
+       for i, o, conv, temb in [(16, 16, False, True), (16, 32, False, True),
+                                (16, 32, True, True), (16, 32, False, False)]},
+}
+
+
+@pytest.mark.parametrize("case", list(FOLDING))
+def test_block_with_moved_biases_matches_jax(case):
+    jmod, pmod, inputs = FOLDING[case]()
+    _run(jmod, pmod, *inputs, biases=True)
+
+
+@pytest.mark.parametrize("up,down", [(False, False), (True, False), (False, True)])
+def test_resnet_block_biggan_bf16_with_moved_biases(up, down):
+    """As ``test_resnet_block_biggan_bf16``, every bias leaf moved: the port
+    folds Conv_0's bias into K2's pre-bias and Conv_1's and Conv_2's into the
+    merge, where flax adds each in bf16 and rounds."""
+    x, temb = _nhwc((2, 8, 6, 16), 8), _nhwc((2, 24), 9)
+    jmod = jb.ResnetBlockBigGANpp(act=jax.nn.silu, in_ch=16, out_ch=16, up=up, down=down,
+                                  fir=True, init_scale=1.0, temb_dim=24, dtype=jnp.bfloat16)
+    pmod = pb.ResnetBlockBigGANpp(16, 16, up=up, down=down, fir=True, init_scale=1.0,
+                                  temb_dim=24, dtype=torch.bfloat16)
+    params = move_biases(jmod.init(jax.random.key(0), jnp.asarray(x),
+                                   jnp.asarray(temb))["params"])
+    ref = np.asarray(jmod.apply({"params": params}, jnp.asarray(x),
+                                jnp.asarray(temb))).astype(np.float32)
+    pmod.load_state_dict(convert.state_dict_from_jax(jax.tree.map(np.asarray, params)))
     with torch.no_grad():
         got = pmod(_port_in(x).to(torch.bfloat16), _port_in(temb))
     assert got.dtype == torch.bfloat16

@@ -12,14 +12,21 @@ Tolerances, relative to max|plain|: float32 2e-5 (sums in another order),
 bfloat16 2^-7 (one bf16 rounding step). The backward kernels (K2b and the K1
 adjoint) are held the same way; K2b's float32 outputs (dgamma, dbeta, and all
 of them for float32 inputs) to 1e-4, its sums running over up to B*H*W terms
-per channel in another order. Beside them, one test holds the bridge sampler
-and its training loss to making no synchronising call.
+per channel in another order. K8, the residual merge, is held to its plain
+version bit for bit (the same float32 operations in the same order, one
+rounding) at small shapes, at the main path's (cell 1's 16 x 128 x 256 x
+{192, 512} and 16 x 256 x 64 x 128, the 48 kHz cell's 1 x 128 x 768 x 512)
+and on its general path (any C, unaligned tensors),
+and a small network whose biases are folded into K2 and K8 to its output with
+autograd on. Beside them, one test holds the bridge sampler and its training
+loss to making no synchronising call.
 """
 import numpy as np
 import pytest
 import torch
 
 from sgmse_tpu_torch.ops import group_norm as gn
+from sgmse_tpu_torch.ops import residual_merge as rm
 from sgmse_tpu_torch.ops import upfirdn2d as ufd
 
 pytestmark = pytest.mark.cuda
@@ -436,3 +443,113 @@ def test_long_path_replays_the_network_from_cuda_graphs(dev):
     model.dnn.load_state_dict(other.dnn.state_dict())  # copied into the same storage
     np.testing.assert_array_equal(graphed(seg, 1, 0.06), plain(seg, 1))
     assert len(port_model._GRAPHS[model]) == 1
+
+
+@pytest.mark.parametrize("biases", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 5, 7), (1, 256, 3, 3), (16, 128, 256, 192),
+                                   (16, 128, 256, 512), (16, 256, 64, 128), (1, 128, 768, 512),
+                                   # the general path: C off the 16-byte vector, past 256 of them
+                                   (2, 4, 5, 7), (1, 12, 3, 5), (1, 2056, 2, 3)])
+def test_residual_merge_kernel_matches_plain(dev, shape, dtype, biases):
+    h, skip = _input(shape, dtype, dev, seed=0), _input(shape, dtype, dev, seed=1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    bias, skip_bias = (0.1 * torch.randn(shape[1], generator=g, device=dev) if on else None
+                       for on in biases)
+    for scale in (2.0**-0.5, 1.0):
+        target = h.clone()
+        before = rm.residual_merge_cuda.launches
+        got = rm.residual_merge(target, skip, scale, bias, skip_bias)
+        torch.cuda.synchronize()
+        assert got is target and rm.residual_merge_cuda.launches == before + 1
+        assert torch.equal(got, rm.residual_merge_plain(h.clone(), skip, scale, bias, skip_bias))
+
+
+def test_residual_merge_kernel_refuses_what_it_does_not_take(dev):
+    h = _input((1, 16, 4, 4), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="channels_last"):
+        rm.residual_merge(h, h.contiguous())
+    with pytest.raises(ValueError, match="distinct"):
+        rm.residual_merge(h, h)
+    with pytest.raises(ValueError, match="shape, dtype"):
+        rm.residual_merge(h, _input((1, 16, 4, 4), torch.float32, dev))
+    with pytest.raises(ValueError, match="bias"):
+        rm.residual_merge(h, _input((1, 16, 4, 4), torch.bfloat16, dev, seed=1),
+                          bias=torch.zeros(16, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_merge_kernel_takes_unaligned_tensors(dev, dtype):
+    """channels_last views one element past a 16-byte boundary take the
+    general path, bit for bit against plain."""
+    b, c, hh, w = 2, 16, 5, 3
+
+    def unaligned(seed):
+        flat = torch.randn(b * c * hh * w + 1, generator=torch.Generator().manual_seed(seed))
+        t = flat.to(dev, dtype)[1:].view(b, hh, w, c).permute(0, 3, 1, 2)
+        assert t.is_contiguous(memory_format=torch.channels_last) and t.data_ptr() % 16
+        return t
+
+    h, skip = unaligned(0), unaligned(1)
+    bias = torch.linspace(-0.5, 0.5, c, device=dev)
+    want = rm.residual_merge_plain(h.clone(memory_format=torch.channels_last), skip, 2.0**-0.5,
+                                   bias, bias.flip(0))
+    got = rm.residual_merge(h, skip, 2.0**-0.5, bias, bias.flip(0))
+    torch.cuda.synchronize()
+    assert got is h and torch.equal(got, want)
+
+
+# Small networks on the folded path: the flagship (BigGAN blocks, attention, a sum-combined
+# input pyramid), and the residual pyramids with BigGAN blocks and FIR (K6 in the pyramids)
+# or with DDPM blocks, no FIR and elu.
+FOLDED_NETS = {
+    "flagship": dict(progressive_combine="sum"),
+    "fir_residual": dict(progressive="residual", progressive_input="residual"),
+    "ddpm_residual": dict(resblock_type="ddpm", progressive="residual",
+                          progressive_input="residual", fir=False, nonlinearity="elu"),
+}
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("net", sorted(FOLDED_NETS))
+def test_folded_network_matches_autograd_mode(dev, net, precision):
+    """A small network with non-zero biases, evaluated where no gradient is
+    recorded (its biases folded into K2's pre-bias and K8; one K8 launch per
+    res-block, attention block, sum Combine and residual pyramid merge),
+    against the same evaluation with autograd on: float32 within 1e-4 of
+    max|out| (cuDNN's convolutions with and without a bias may sum in another
+    order), bfloat16 within 5e-2, the repo's NCSN++ bf16 bound (the unfolded
+    path rounds each bias add, the sum and the scale, and the roundings
+    compound over the network's depth: 0.013-0.021 on the CPU over three
+    draws of the flagship)."""
+    from sgmse_tpu_torch.model import ScoreModel
+    from sgmse_tpu_torch.models import blocks as pb
+
+    model = ScoreModel("ncsnpp", "ouve", nf=16, ch_mult=(1, 1, 2), num_res_blocks=1,
+                       attn_resolutions=(16,), image_size=64, init_scale=1.0, n_fft=126,
+                       precision=precision, **FOLDED_NETS[net])
+    model.init_params(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim == 1 and p.requires_grad:
+                p.add_(0.2 * torch.randn(p.shape, generator=g))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    merges = sum(isinstance(m, (pb.ResnetBlockBigGANpp, pb.ResnetBlockDDPMpp, pb.AttnBlockpp))
+                 or (isinstance(m, pb.Combine) and m.method == "sum") for m in model.modules())
+    if "residual" in net:  # a merge at each pyramid level but the last, down and up
+        merges += 2 * (len(model.dnn.ch_mult) - 1)
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy((rng.standard_normal((2, 1, 64, 64))
+                              + 1j * rng.standard_normal((2, 1, 64, 64))).astype(np.complex64))
+            .to(dev) for _ in range(2))
+    t = torch.tensor([0.3, 0.7], device=dev)
+    with torch.enable_grad():
+        ref = torch.view_as_real(model(x, y, t).detach())
+    before = rm.residual_merge_cuda.launches
+    with torch.inference_mode():
+        got = torch.view_as_real(model(x, y, t))
+    torch.cuda.synchronize()
+    assert rm.residual_merge_cuda.launches == before + merges
+    tol = 1e-4 if precision == "float32" else 5e-2
+    assert (got - ref).abs().max() <= tol * ref.abs().max()

@@ -8,6 +8,9 @@
 - The dispatcher recorder sees every kernel call of a forward at the small test
   config, with the pair launches and the temb pre-bias, and leaves the output
   as it was.
+- K8's yardstick (the ops it replaces: each bias's add, the sum, the scale,
+  each rounded) against its plain version: 1e-6 of max|ref| in float32 (a
+  division against a multiplication), two bf16 steps in bfloat16.
 """
 import numpy as np
 import pytest
@@ -141,14 +144,19 @@ def test_per_nfe_sums_each_signature_times_its_calls():
 
 
 @pytest.mark.parametrize("backbone,f_bins,per_forward,silu_split,pre_bias", [
-    ("ncsnpp", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4], 49),
-    ("ncsnpp_v2", 256, {"upfirdn2d": 24, "group_norm_act": 109}, [105, 4], 49),
-    ("ncsnpp_48k", 768, {"upfirdn2d": 12, "group_norm_act": 100}, [99, 1], 49),
-    ("48k_residual", 768, {"upfirdn2d": 12, "fir_conv": 12, "group_norm_act": 101}, [100, 1],
+    ("ncsnpp", 256, {"upfirdn2d": 24, "group_norm_act": 109, "residual_merge": 59}, [105, 4],
      49),
-    ("ncsnpp_variant", 256, {"upfirdn2d": 0, "group_norm_act": 85}, [0, 85], 37),
-    ("learn_demo", 256, {"upfirdn2d": 12, "group_norm_act": 45}, [44, 1], 20),
-    ("demo_48k", 768, {"upfirdn2d": 6, "group_norm_act": 42}, [41, 1], 20),
+    ("ncsnpp_v2", 256, {"upfirdn2d": 24, "group_norm_act": 109, "residual_merge": 59},
+     [105, 4], 49),
+    ("ncsnpp_48k", 768, {"upfirdn2d": 12, "group_norm_act": 100, "residual_merge": 50},
+     [99, 1], 49),
+    ("48k_residual", 768, {"upfirdn2d": 12, "fir_conv": 12, "group_norm_act": 101,
+                           "residual_merge": 62}, [100, 1], 49),
+    ("ncsnpp_variant", 256, {"upfirdn2d": 0, "group_norm_act": 85, "residual_merge": 41},
+     [0, 85], 37),
+    ("learn_demo", 256, {"upfirdn2d": 12, "group_norm_act": 45, "residual_merge": 24}, [44, 1],
+     20),
+    ("demo_48k", 768, {"upfirdn2d": 6, "group_norm_act": 42, "residual_merge": 21}, [41, 1], 20),
 ])
 def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward, silu_split,
                                                    pre_bias):
@@ -158,7 +166,9 @@ def test_kernel_calls_per_forward_of_each_backbone(backbone, f_bins, per_forward
     pyramids (``kt.VARIANTS``) it adds 12 K6 calls (``fir_conv``, one kernel
     launch each: 6 down, 6 up, each with its bias) and the top pyramid norm.
     The ``ncsnpp`` variant (DDPM blocks, no FIR, elu) calls no K1, and K2
-    always without SiLU. The learn demos' nets (nf 32, four levels of one
+    always without SiLU. K8 (``residual_merge``) merges each res-block and
+    attention block, each sum Combine and each residual pyramid level. The
+    learn demos' nets (nf 32, four levels of one
     res-block) make a quarter of the res-block pairs' calls, the 16 kHz one
     with its pyramids."""
     backbone, settings = kt.VARIANTS.get(backbone, (backbone, {}))
@@ -209,15 +219,16 @@ def test_train_signatures_are_the_flagship_training_calls():
 
 @pytest.mark.parametrize("variant,f_bins,per_step", [
     ("learn_demo", 256, {"group_norm_act": 45, "upfirdn2d": 12, "group_norm_act_bwd": 45,
-                         "upfirdn2d_adjoint": 9}),
+                         "upfirdn2d_adjoint": 9, "residual_merge": 0}),
     ("demo_48k", 768, {"group_norm_act": 42, "upfirdn2d": 6, "group_norm_act_bwd": 42,
-                       "upfirdn2d_adjoint": 6}),
+                       "upfirdn2d_adjoint": 6, "residual_merge": 0}),
 ])
 def test_train_calls_of_the_learn_demo_nets(variant, f_bins, per_step):
     """The launches per train step chip_smoke.py expects of the demos' nets
     (phases 14a and 15a): the 16 kHz net's adjoints are its 6 res-block
     pairs' and 3 output-pyramid upsamplings', the 48 kHz net (no pyramids)
-    has its 6 pairs' alone."""
+    has its 6 pairs' alone. A train step calls no K8 (its biases are not
+    folded with autograd on)."""
     backbone, settings = kt.VARIANTS[variant]
     model = ScoreModel(backbone, "ouve", init_scale=1.0, **settings)
     fwd, bwd = kt.record_train_calls(model, CPU, batch=1, f_bins=f_bins, frames=64)
@@ -246,3 +257,20 @@ def test_group_norm_bwd_library_yardstick_matches_plain(silu, bias):
     assert len(case["plain"]()) == (4 if bias else 3)
     assert case["bytes"] == 3 * 2 * 32 * 48 * 4 + 4 * 32 * 4 + 2 * 8 * 2 * 4 + (
         2 * 2 * 32 * 4 if bias else 0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 2.0**-6)])
+@pytest.mark.parametrize("scale,bias,skip_bias", [(2.0**-0.5, True, True), (2.0**-0.5, True, False),
+                                                  (1.0, True, False), (2.0**-0.5, False, False)])
+def test_k8_library_yardstick_matches_plain(dtype, tol, scale, bias, skip_bias):
+    """The ops K8 replaces compute its function; each callable of the case
+    writes over its own copy of h, so that the first calls of all of them
+    start from the same inputs."""
+    sig = ((2, 16, 6, 5), scale, bias, skip_bias)
+    case = kt.make_case("residual_merge", sig, dtype, CPU, torch.Generator().manual_seed(2))
+    ref = case["library_ref"]()
+    _close(case["library"]().float(), ref.float(), tol)
+    assert torch.equal(case["plain"](), ref)
+    esize = torch.empty((), dtype=dtype).element_size()
+    assert case["bytes"] == 3 * 2 * 16 * 30 * esize + 4 * 16 * (int(bias) + int(skip_bias))
+    assert case["sig"] == kt.label("residual_merge", sig)

@@ -7,6 +7,10 @@ Weights: the JAX model's own init for ncsnpp, the port's for the variants
 Tolerance: float32 forward within 1e-4 of max|out| (convolution sums run in
 another order in the two frameworks); bfloat16 forward within 5e-2 of
 max|out| (both round every layer's output to bf16, at different places).
+Both inits leave every bias at zero, so each forward is also compared with
+every bias leaf of the tree moved by seeded noise (the port, under
+``no_grad``, folds the res-blocks', attention's and Combine's biases into
+its kernels), at the same tolerances.
 """
 import numpy as np
 import pytest
@@ -18,6 +22,8 @@ from sgmse_tpu.models import BackboneRegistry as JaxBackbones
 from sgmse_tpu.models import NCSNpp as JaxNCSNpp
 from sgmse_tpu_torch import convert
 from sgmse_tpu_torch.models import BackboneRegistry, NCSNpp, NCSNpp_48k, NCSNpp_v2
+
+from test_torch_blocks import move_biases
 
 SMALL = dict(nf=16, ch_mult=(1, 1, 2), num_res_blocks=1, attn_resolutions=(16,),
              image_size=64, init_scale=1.0)
@@ -164,3 +170,22 @@ def test_variant_defaults():
         "none", "none")
     assert k48.output_layer_before_sigma and hasattr(k48, "out_norm")
     assert not any("pyramid" in n or "combine" in n for n, _ in k48.named_modules())
+
+
+@pytest.mark.parametrize("precision,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("name", ["ncsnpp"] + sorted(VARIANTS))
+def test_forward_with_moved_biases_matches_jax(jax_params, variant_params, name, precision,
+                                               tol):
+    x, y, t = _inputs(seed=3)
+    params = move_biases(jax_params if name == "ncsnpp" else variant_params[name], seed=4)
+    config = dict(SMALL if name == "ncsnpp" else VARIANTS[name], precision=precision)
+    ref = np.asarray(jax.jit(JaxBackbones.get_by_name(name)(**config).apply)(
+        {"params": params}, x, y, t))
+    net = BackboneRegistry.get_by_name(name)(**config)
+    net.load_state_dict(convert.params_from_jax(params, name, **config))
+    with torch.no_grad():
+        got = net.to(memory_format=torch.channels_last).eval()(
+            torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(t)).numpy()
+    assert got.shape == ref.shape == (2, 1, 64, 64)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err < tol, f"relative error {err}"

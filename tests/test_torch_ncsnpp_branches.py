@@ -10,6 +10,10 @@ Tolerances: the float32 forward within 1e-4 of max|out|; the ``step_loss``
 value and every leaf's gradient within 1e-4 of the leaf's max|grad|
 (convolution sums in another order in the two frameworks); the attention key
 bias, whose gradient is exactly zero, within 1e-6 of the largest gradient.
+The init leaves every bias at zero, so each forward is also compared with
+every bias leaf moved by seeded noise (the port, under ``no_grad``, folds the
+res-blocks', attention's, Combine's and the residual pyramids' biases and
+merges into its kernels), at the same tolerance.
 """
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from sgmse_tpu.model import ScoreModel as JaxScoreModel
 from sgmse_tpu.sdes import crandn as jax_crandn
 from sgmse_tpu_torch import convert
 from sgmse_tpu_torch.model import ScoreModel
+from test_torch_blocks import move_biases
 
 SMALL = dict(nf=16, ch_mult=(1, 2), num_res_blocks=1, init_scale=1.0, n_fft=62,
              hop_length=16, num_frames=32)
@@ -116,3 +121,20 @@ def test_branch_matches_jax(case):
             continue
         err = (g - r).abs().max().item()
         assert err <= TOL * r.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_branch_with_moved_biases_matches_jax(case):
+    port, jmodel, params = _models(case)
+    params = move_biases(params, seed=6)
+    port.dnn.load_state_dict(convert.state_dict_from_jax(params))
+    rng = np.random.default_rng(2)
+    x, y = _complex(rng, (2, 1, F, T)), _complex(rng, (2, 1, F, T))
+    t = rng.uniform(0.03, 1.0, 2).astype(np.float32)
+    ref = np.asarray(jax.jit(jmodel.dnn.apply)({"params": params}, x, y, t))
+    with torch.no_grad():
+        got = port.dnn.eval()(torch.from_numpy(x), torch.from_numpy(y),
+                              torch.from_numpy(t)).numpy()
+    assert got.shape == ref.shape == (2, 1, F, T)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err <= TOL, err
